@@ -1,0 +1,7 @@
+from .spmv import as_operator, matvec_fn, rmult, rmult_add, rmult_sub
+from .vector import axpy, dot, fill, norm2, norm2_squared, xpay
+
+__all__ = [
+    "as_operator", "matvec_fn", "rmult", "rmult_add", "rmult_sub",
+    "axpy", "dot", "fill", "norm2", "norm2_squared", "xpay",
+]

@@ -1,0 +1,89 @@
+"""SpMV family: y = op(lhs, A @ x).
+
+Port of ``sparse_matrix_math_tpu/ops/spmv.py:94-136, 164-211, 280-320``, the
+reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
+
+* CSR — gather ``x`` by column, multiply, ``index_add_`` by row.  The JAX
+  package computes this in XLA, not in a kernel, so plain torch is its port.
+* DIA — the hand-written kernel :func:`~.dia_spmv.dia_spmv` (K1).
+* dense 2-D tensors — ``a @ x``; callables — ``a(x)``.
+"""
+
+from __future__ import annotations
+
+from functools import singledispatch
+
+import torch
+
+from ..formats.csr import CSRMatrix
+from ..formats.dia import DIAMatrix
+from . import dia_spmv as _dia
+
+__all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator"]
+
+
+def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-entry coefficients shaped to broadcast against an (n,) or (n, k) x."""
+    return v.reshape(v.shape + (1,) * (x.ndim - 1))
+
+
+@singledispatch
+def rmult(a, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x (reference rMult, h:1501-1505) for a CSR or DIA matrix, a
+    dense 2-D tensor, or a matvec callable."""
+    if isinstance(a, torch.Tensor) and a.ndim == 2:
+        return a @ x
+    if callable(a):
+        return a(x)
+    raise TypeError(f"unsupported matrix type: {type(a).__name__}")
+
+
+@rmult.register
+def _rmult_csr(a: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    dtype = torch.promote_types(a.dtype, x.dtype)
+    gathered = _bcast(a.data.to(dtype), x) * x.to(dtype).index_select(0, a.indices)
+    y = torch.zeros((a.shape[0],) + tuple(x.shape[1:]), dtype=dtype, device=x.device)
+    return y.index_add_(0, a.row_ids, gathered)
+
+
+@rmult.register
+def _rmult_dia(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
+    dtype = torch.promote_types(a.dtype, x.dtype)
+    if not a.offsets:  # no stored diagonals: A == 0
+        return torch.zeros((a.shape[0],) + tuple(x.shape[1:]), dtype=dtype,
+                           device=x.device)
+    if a.dtype != dtype:
+        a = a.astype(dtype)
+    x = x.to(dtype)
+    if x.ndim == 1:
+        return _dia.dia_spmv(a, x.contiguous())
+    # several right-hand sides: one kernel launch per column
+    return torch.stack([_dia.dia_spmv(a, x[:, j].contiguous())
+                        for j in range(x.shape[1])], dim=1)
+
+
+def rmult_add(a, lhs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = lhs + A @ x (reference rMultAdd, h:1507-1510)."""
+    return lhs + rmult(a, x)
+
+
+def rmult_sub(a, lhs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = lhs - A @ x (reference rMultSub, h:1512-1515)."""
+    return lhs - rmult(a, x)
+
+
+def as_operator(a):
+    """Check that ``a`` is an operator the solvers take: a CSR or DIA
+    matrix, a dense 2-D tensor, or a matvec callable."""
+    if isinstance(a, (CSRMatrix, DIAMatrix)) or callable(a):
+        return a
+    if isinstance(a, torch.Tensor) and a.ndim == 2:
+        return a
+    raise TypeError(f"unsupported matrix type: {type(a).__name__}")
+
+
+def matvec_fn(a):
+    """The solvers' matvec closure for any operator :func:`as_operator` takes."""
+    if callable(a):
+        return a
+    return lambda x: rmult(a, x)
