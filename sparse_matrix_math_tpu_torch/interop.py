@@ -12,9 +12,16 @@ import torch
 
 from .formats.csr import CSRMatrix
 from .formats.dia import DIAMatrix
-from .precond.preconditioners import JacobiPreconditioner
+from .precond.preconditioners import (
+    IC0Preconditioner,
+    ILU0Preconditioner,
+    JacobiPreconditioner,
+    SGSPreconditioner,
+)
+from .precond.trisolve import TriangularMatrix
 
-__all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy"]
+__all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy", "triangular_from_numpy",
+           "sgs_from_numpy", "ic0_from_numpy", "ilu0_from_numpy"]
 
 
 def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
@@ -46,3 +53,39 @@ def dia_from_numpy(diags, offsets, shape, nnz, device) -> DIAMatrix:
 def jacobi_from_numpy(inv_diag, device) -> JacobiPreconditioner:
     """A :class:`JacobiPreconditioner` from its inverse diagonal."""
     return JacobiPreconditioner(inv_diag=torch.tensor(np.asarray(inv_diag), device=device))
+
+
+def triangular_from_numpy(fields, device) -> TriangularMatrix:
+    """A :class:`TriangularMatrix` from a mapping of its fields: the arrays
+    ``data``, ``indices``, ``row_ids``, ``diag`` and ``dense`` (None when
+    absent), and ``n``, ``lower``, ``depth``, ``method``, ``sweeps``."""
+    def tensor(name, dtype=None):
+        return torch.tensor(np.asarray(fields[name], dtype=dtype), device=device)
+
+    return TriangularMatrix(
+        data=tensor("data"), indices=tensor("indices", np.int64),
+        row_ids=tensor("row_ids", np.int64), diag=tensor("diag"),
+        dense=None if fields.get("dense") is None else tensor("dense"),
+        n=int(fields["n"]), lower=bool(fields["lower"]), depth=int(fields["depth"]),
+        method=str(fields["method"]), sweeps=int(fields["sweeps"]),
+    )
+
+
+def sgs_from_numpy(fwd_fields, bwd_fields, diag, device) -> SGSPreconditioner:
+    """An :class:`SGSPreconditioner` from its two factors' fields and diagonal."""
+    return SGSPreconditioner(fwd=triangular_from_numpy(fwd_fields, device),
+                             bwd=triangular_from_numpy(bwd_fields, device),
+                             diag=torch.tensor(np.asarray(diag), device=device))
+
+
+def ic0_from_numpy(lower_fields, upper_fields, device) -> IC0Preconditioner:
+    """An :class:`IC0Preconditioner` from the fields of L and L^T."""
+    return IC0Preconditioner(lower=triangular_from_numpy(lower_fields, device),
+                             upper=triangular_from_numpy(upper_fields, device))
+
+
+def ilu0_from_numpy(lower_fields, upper_fields, shift, device) -> ILU0Preconditioner:
+    """An :class:`ILU0Preconditioner` from the fields of L and U and its shift."""
+    return ILU0Preconditioner(lower=triangular_from_numpy(lower_fields, device),
+                              upper=triangular_from_numpy(upper_fields, device),
+                              shift=float(shift))

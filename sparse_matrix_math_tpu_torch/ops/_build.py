@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/dia_spmv.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``: no PyTorch
+The sources in :data:`SOURCES` are compiled with ``nvcc`` for ``sm_90a``,
+one ``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds.  The library lands in the package's
-``build/`` directory under a name that hashes the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded.  The build
-runs at first use, from the sources in the checkout alone; a failed build
-raises.
+``build/`` directory under a name that hashes every source and the flags,
+so an edited source is rebuilt and a stale library is never loaded.  The
+build runs at first use, from the sources in the checkout alone; a failed
+build raises.
 """
 
 from __future__ import annotations
@@ -19,19 +20,20 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "check", "SOURCE"]
+__all__ = ["library", "check", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dia_spmv.cu"
+SOURCES = (_PKG / "csrc" / "dia_spmv.cu", _PKG / "csrc" / "trisweep.cu")
 _BUILD_DIR = _PKG / "build"
-_NVCC_FLAGS = [
+_COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _P]
 _SIGNATURES = {
     # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, stream
     "smm_dia_spmv_padded_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
@@ -39,6 +41,14 @@ _SIGNATURES = {
     # diags, x, y, offsets, ndiags, n_rows, n_cols, stream
     "smm_dia_spmv_f32": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     "smm_dia_spmv_f64": [_P, _P, _P, _P, _I, _LL, _LL, _P],
+    # r, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
+    # sweeps, n_total, lead, n_rows, stream
+    "smm_sgs_apply_f32": _APPLY,
+    "smm_sgs_apply_f64": _APPLY,
+    # r, invd_l, invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1,
+    # out, sweeps, n_total, lead, n_rows, stream
+    "smm_tri_pair_apply_f32": _APPLY,
+    "smm_tri_pair_apply_f64": _APPLY,
 }
 
 
@@ -56,26 +66,44 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(commands) -> None:
+    """Start every command at once, wait for all, raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in commands]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed to build the CUDA kernels:\n" + "\n".join(failed))
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    work = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [work / f"{src.stem}.o" for src in SOURCES]
+        _run_all([[nvcc, *_COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(SOURCES, objs)])
+        lib = work / out.name
+        _run_all([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, out)  # atomic: a concurrent build never loads a partial file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Build (once per version of the sources) and load the kernel library."""
+    digest = hashlib.sha256(" ".join(_COMPILE_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _BUILD_DIR / f"libsmm_dia_spmv_{tag}.so"
+    out = _BUILD_DIR / f"libsmm_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {SOURCE.name} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+        _build(out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -98,12 +98,22 @@ def _dia_layout_params(offsets, shape) -> Tuple[int, int, int, int]:
     return lblk, nblk, rblk, (lblk + nblk + rblk) * _BLOCK
 
 
-def pad_dia(a: DIAMatrix) -> PaddedDIA:
+def pad_dia(a: DIAMatrix, geometry_offsets=None) -> PaddedDIA:
     """One-time layout transform of ``a`` into :class:`PaddedDIA`, on
-    ``a``'s device."""
+    ``a``'s device.
+
+    ``geometry_offsets`` sizes the guards from this superset of
+    ``a.offsets`` instead of ``a.offsets`` (pallas_spmv.py:218-250): the
+    strict factors of a preconditioner are laid out so, with the full
+    matrix's offsets, and share its ``lblk``, ``nblk`` and ``n_total``, so
+    the solver vectors pass between them unchanged.
+    """
     if not a.offsets:
         raise ValueError("a DIA matrix with no stored diagonals has no padded layout")
-    lblk, nblk, _, n_total = _dia_layout_params(a.offsets, a.shape)
+    geo = a.offsets if geometry_offsets is None else tuple(geometry_offsets)
+    if not set(a.offsets) <= set(geo):
+        raise ValueError("geometry_offsets must be a superset of a.offsets")
+    lblk, nblk, _, n_total = _dia_layout_params(geo, a.shape)
     lead = lblk * _BLOCK
     diags_p = torch.zeros((len(a.offsets), n_total), dtype=a.dtype, device=a.device)
     diags_p[:, lead:lead + a.shape[0]] = a.diags

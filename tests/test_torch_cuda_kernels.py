@@ -14,6 +14,8 @@ import torch
 
 import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+from sparse_matrix_math_tpu_torch.ops import trisweep as T
+from sparse_matrix_math_tpu_torch.precond import PaddedSGS, PaddedTriPair
 
 pytestmark = pytest.mark.cuda
 
@@ -30,7 +32,7 @@ DTYPES = [torch.float32, torch.float64]
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the DIA kernels run only there")
+        pytest.skip("needs a CUDA card: the CUDA kernels run only there")
     return torch.device("cuda", 0)
 
 
@@ -77,6 +79,65 @@ def test_wrappers_raise_on_cuda(cuda_device):
         K.dia_spmv(a, x.cpu())
 
 
+def _padded_rhs(pre, dtype, device, seed=0):
+    r = np.random.default_rng(seed).standard_normal(pre.shape[0])
+    rp = torch.zeros(pre.n_total, dtype=dtype, device=device)
+    rp[pre.lead:pre.lead + pre.shape[0]] = torch.as_tensor(r, device=device).to(dtype)
+    return rp
+
+
+def _check_apply(pre, fused, plain, name, dtype, device):
+    rp = _padded_rhs(pre, dtype, device)
+    before = T.launches[name]
+    z = fused(pre, rp)
+    torch.cuda.synchronize()
+    assert T.launches[name] == before + 1
+    assert torch.equal(z, plain(pre, rp))
+    n = pre.shape[0]
+    assert torch.all(z[:pre.lead] == 0) and torch.all(z[pre.lead + n:] == 0)
+
+
+SWEEP_CASES = [("poisson_2d", (37,)), ("poisson_3d_27pt", (5,)),
+               ("convection_diffusion_2d", (9,))]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name,args", SWEEP_CASES, ids=[f"{n}{a}" for n, a in SWEEP_CASES])
+def test_sgs_apply_matches_plain(cuda_device, name, args, dtype, sweeps):
+    pre = PaddedSGS.from_dia(_dia(name, args, dtype, cuda_device), sweeps=sweeps)
+    _check_apply(pre, T.sgs_apply_fused, T.sgs_apply_plain, "sgs_apply", dtype, cuda_device)
+
+
+# IC(0) on the symmetric systems, ILU(0) on all
+PAIR_CASES = [("ic0",) + c for c in SWEEP_CASES[:2]] + [("ilu0",) + c for c in SWEEP_CASES]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("kind,name,args", PAIR_CASES,
+                         ids=[f"{k}-{n}{a}" for k, n, a in PAIR_CASES])
+def test_tri_pair_apply_matches_plain(cuda_device, kind, name, args, dtype, sweeps):
+    csr = getattr(smm, name)(*args, dtype=dtype, device=cuda_device)
+    fac = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=sweeps)
+    pre = PaddedTriPair.from_factors(fac.lower, fac.upper, smm.dia_from_csr(csr))
+    _check_apply(pre, T.tri_pair_apply_fused, T.tri_pair_apply_plain, "tri_pair_apply",
+                 dtype, cuda_device)
+
+
+@pytest.mark.parametrize("offsets", [(0, 1), (-1, 0), (0,)])
+def test_one_sided_and_diagonal_applies(cuda_device, offsets):
+    """An empty strict part on one side, or on both: a diagonal scale there."""
+    n = 3000
+    diags = np.random.default_rng(1).uniform(-1.0, -0.5, (len(offsets), n))
+    diags[offsets.index(0)] += 3.5
+    a = smm.DIAMatrix(diags=torch.as_tensor(diags, device=cuda_device), offsets=offsets,
+                      shape=(n, n), nnz=0)
+    pre = PaddedSGS.from_dia(a, sweeps=4)
+    _check_apply(pre, T.sgs_apply_fused, T.sgs_apply_plain, "sgs_apply", torch.float64,
+                 cuda_device)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_solves_match_cpu(cuda_device, dtype):
     """The CUDA solve path (kernel matvec) against the CPU one (plain
@@ -97,3 +158,26 @@ def test_solves_match_cpu(cuda_device, dtype):
         if dtype == torch.float64:
             # both residuals are below 1e-8 and lambda_min(A) > 0.03
             assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["sgs", "ic0", "ilu0"])
+def test_preconditioned_solves_match_cpu(cuda_device, kind):
+    """The preconditioned padded solve with the K4/K5 kernels on the card
+    against the plain versions on the CPU, in f64: the same status, and
+    iteration counts within 2 (the dots sum in other orders)."""
+    b = np.random.default_rng(2).standard_normal(24 * 24)
+    solvers = (smm.bicgstab,) if kind == "ilu0" else (smm.cg, smm.bicgstab)
+    for solver in solvers:
+        res = {}
+        for dev in ("cpu", cuda_device):
+            csr = smm.poisson_2d(24, dtype=torch.float64, device=dev)
+            pre = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=4)
+            before = dict(T.launches)
+            res[str(dev)] = solver(smm.dia_from_csr(csr), torch.as_tensor(b, device=dev),
+                                   epsilon=1e-8, preconditioner=pre)
+        cpu, gpu = res["cpu"], res[str(cuda_device)]
+        assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+        assert abs(gpu.iterations - cpu.iterations) <= 2
+        assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
+        name = "sgs_apply" if kind == "sgs" else "tri_pair_apply"
+        assert T.launches[name] - before[name] >= gpu.iterations
