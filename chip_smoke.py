@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DIA solve paths once on one CUDA card.
+"""Drive the PyTorch port's DIA and general-pattern solve paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels (``csrc/dia_spmv.cu``, ``csrc/trisweep.cu``)
-with nvcc and the native IC(0)/ILU(0) factorizations with g++, side by side.
-Phase A holds each kernel wrapper against its plain PyTorch version on the
-card, in f32 and f64, at the systems the solve paths meet (up to the 243^3
-Poisson system, 14.3M rows and 100M nnz), with timings: the DIA SpMV
-kernels, then the fused SGS (K4) and IC(0)/ILU(0) (K5) sweep applies at 1, 2
-and 4 sweeps.  Phase B resets the launch counters, then solves at full width
-through the public entry points on a CUDA ``CSRMatrix`` (auto-route to DIA,
-padded solve, kernel matvec), checks each result against an independent host
-residual computed with scipy, and checks the counters.  Phase P does the
-same for the preconditioned path: SGS, IC(0) and ILU(0) built by
-``from_matrix(csr, method="jacobi", sweeps=4)``, every apply one launch of
-K4 or K5.  Phase C solves a small system and compares the solution with
-scipy's direct solve.
+It builds the hand-written kernels (``csrc/dia_spmv.cu``, ``csrc/trisweep.cu``,
+``csrc/wsell_spmv.cu``, ``csrc/ell_spmv.cu``) with nvcc, one process per
+source, and the native factorizations and W-SELL layout routines with g++,
+side by side.  Phase A holds each DIA kernel wrapper against its plain
+PyTorch version on the card, in f32 and f64, at the systems the solve paths
+meet (up to the 243^3 Poisson system, 14.3M rows and 100M nnz), with
+timings: the DIA SpMV kernels, then the fused SGS (K4) and IC(0)/ILU(0) (K5)
+sweep applies at 1, 2 and 4 sweeps.  Phase B resets the launch counters,
+then solves at full width through the public entry points on a CUDA
+``CSRMatrix`` (auto-route to DIA, padded solve, kernel matvec), checks each
+result against an independent host residual computed with scipy, and checks
+the counters.  Phase P does the same for the preconditioned path: SGS,
+IC(0) and ILU(0) built by ``from_matrix(csr, method="jacobi", sweeps=4)``,
+every apply one launch of K4 or K5.  Phase W does both for the
+general-pattern path: the JAX bench's unstructured system
+(``laplace_3d_jittered(113)``, 17.5M nnz) routed to W-SELL, its IC(0)
+strict factors in W-SELL, a shuffled ``poisson_2d(1414)`` routed through
+RCM to W-SELL, and ELL: kernels K6 (ELL), K7 and K8 (W-SELL) against their
+plain versions beside the ``torch.sparse_csr_tensor`` product, then the
+solves with the counters reset just before them.  Phase C solves a small
+system and compares the solution with scipy's direct solve.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
@@ -39,6 +46,12 @@ _PALLAS = "sparse_matrix_math_tpu/ops/pallas_spmv.py"
 _SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv.cu"
 _TRI_PALLAS = "sparse_matrix_math_tpu/ops/pallas_trisweep.py"
 _TRI_SOURCE = "sparse_matrix_math_tpu_torch/csrc/trisweep.cu"
+_WSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_wsell.py"
+_WSELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/wsell_spmv.cu"
+_ELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/ell_spmv.cu"
+# the card's memory rate, for each kernel's bound: bytes / rate (H100 SXM
+# data sheet; the kernels here are bound by bytes, not operations)
+_HBM_BYTES_PER_S = 3.35e12
 _SWEEPS = (1, 2, 4)
 # relative error bounds of kernel against plain version: the summation
 # order is the same, so these hold with a wide margin (the kernel rounds
@@ -50,10 +63,24 @@ class CheckFailed(Exception):
     pass
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg: str, quiet: bool = False) -> None:
+    """Raise CheckFailed unless ``cond``; print the passed check unless ``quiet``."""
     if not cond:
         raise CheckFailed(msg)
-    print(f"  ok: {msg}")
+    if not quiet:
+        print(f"  ok: {msg}")
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time the card takes to move ``nbytes`` of device memory."""
+    return nbytes / _HBM_BYTES_PER_S * 1e3
+
+
+def library_csr(torch, data, indices, indptr, shape):
+    """The same matrix as ``torch.sparse_csr_tensor``, the yardstick whose
+    ``@`` is timed beside a kernel (the port never calls it)."""
+    return torch.sparse_csr_tensor(indptr.to(torch.int32), indices.to(torch.int32), data,
+                                   size=shape)
 
 
 def median_ms(fn, samples: int = 11, calls: int = 20) -> float:
@@ -133,7 +160,15 @@ def phase_a(smm, K, torch, dev):
                 print(f"  {kname} {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
                       f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)")
                 if label == "poisson_2d(1414)" and name == "float32" and kname in stats:
-                    stats[kname].update(ms=ms, plain_ms=plain_ms)
+                    stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
+            if name == "float32" and label in ("poisson_2d(1414)", "poisson_3d(243)"):
+                lib = library_csr(torch, csr.data.to(dtype), csr.indices, csr.indptr, csr.shape)
+                lib_ms = median_ms(lambda: lib @ x)
+                print(f"  torch.sparse_csr_tensor @ x {name}: {lib_ms:.4f} ms")
+                if label == "poisson_2d(1414)":
+                    for kname in ("dia_spmv", "dia_spmv_padded"):
+                        stats[kname]["library_ms"] = lib_ms
+                del lib
             for kname in ("dia_spmv", "dia_spmv_padded"):
                 require(K.launches[kname] > before[kname], f"{kname} {name}: launch counter rose")
             del a, p, x, xp
@@ -167,7 +202,10 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
 
         def pair(kind):
             t0 = time.perf_counter()
-            fac = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=1)
+            # the padded layout alone is checked here, so the factors skip
+            # the W-SELL layout of their strict parts (phase W times it)
+            fac = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=1,
+                                         strict_layout="csr")
             out = PaddedTriPair.from_factors(fac.lower, fac.upper, dia64)
             print(f"  {kind} factors of {label} on the host in "
                   f"{time.perf_counter() - t0:.2f} s")
@@ -211,7 +249,9 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
                 print(f"  {tag}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
                       f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)")
                 if label == "poisson_2d(1414)" and name == "float32" and kind != "ilu0":
-                    stats[kname].update(ms=ms, plain_ms=plain_ms)
+                    # no single PyTorch call computes a Jacobi-sweep apply
+                    stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                                        library_ms=None)
             del base, rp, z, z_ref
         del pre64
 
@@ -344,13 +384,14 @@ def phase_b(smm, K, loop, torch, dev):
         ("bicgstab convection_diffusion_2d(1414) f64", smm.bicgstab, cd64, x_rand,
          dict(epsilon=1e-8, max_iterations=20000)),
     ]
+    iterations = {}
     for label, solver, csr, x_true, kw in solves:
-        solve_and_check(smm, loop, torch, dev, label, solver, csr, x_true, kw,
-                        K.launches, "dia_spmv_padded", 1)
+        iterations[label] = solve_and_check(smm, loop, torch, dev, label, solver, csr, x_true,
+                                            kw, K.launches, "dia_spmv_padded", 1).iterations
     counts = dict(K.launches)
     for kname, n in counts.items():
         require(n > 0, f"main path launched {kname} {n} times")
-    return counts
+    return counts, iterations["cg poisson_2d(1414) f64"]
 
 
 
@@ -430,6 +471,216 @@ def phase_p(smm, K, T, loop, torch, dev):
         require(counts[kname] > 0, f"preconditioned path launched {kname} {counts[kname]} times")
     return counts
 
+def wsell_bytes(ws, k: int, itemsize: int, per_vreg: int = 8) -> int:
+    """K7/K8's bytes model: each slot's value and meta word, ``per_vreg``
+    bytes of base/slab per vreg, x and y once per column."""
+    n_rows, n_cols = ws.shape
+    return ws.n_vregs * (1024 * (itemsize + 4) + per_vreg) + k * (n_cols + n_rows) * itemsize
+
+
+def ell_bytes(ell, itemsize: int) -> int:
+    """K6's bytes model: each slot's value and int32 column, x and y once."""
+    return ell.rows_padded * ell.slots * (itemsize + 4) + sum(ell.shape) * itemsize
+
+
+def kernel_case(torch, stats, key, label, kern, plain, lib, nbytes, n_rows, counter, calls=20):
+    """One kernel against its plain version on the card, timed beside its
+    bound and the library call; one printed line.  Expects exact equality."""
+    before = counter()
+    y, y_ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = (y - y_ref).abs().max().item()
+    require(counter() == before + 1, f"{label}: launch counter rose", quiet=True)
+    require(y.shape[0] == n_rows and bool(torch.isfinite(y).all()) and err == 0.0,
+            f"{label}: {n_rows} finite rows, max abs err {err:.3e} == 0", quiet=True)
+    ms = median_ms(kern, calls=calls)
+    plain_ms = median_ms(plain, samples=3, calls=2)
+    lib_ms = median_ms(lib, calls=calls)
+    b_ms = bound_ms(nbytes)
+    print(f"  {label}: err 0, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+          f"{100 * b_ms / ms:.0f}% of the {b_ms:.4f} ms bound), plain {plain_ms:.3f} ms, "
+          f"torch.sparse_csr_tensor {lib_ms:.4f} ms")
+    entry = stats.setdefault(key, {"err": 0.0})
+    entry["err"] = max(entry["err"], err)
+    if "ms" not in entry:  # the first case of each kernel is its main-path shape
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms)
+
+
+def general_solve(smm, loop, torch, label, solver, a, b, csr, kw, launches, kname,
+                  per_iteration, route=None):
+    """Solve through the public entry twice (the second timed warm); hold
+    the status, the residual against scipy's host residual on ``csr`` and
+    the launches of ``kname`` per iteration.  One printed line."""
+    walls = []
+    for _ in range(2):
+        before = launches[kname]
+        syncs0 = loop.host_syncs["count"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver(a, b, **kw)
+        float(res.residual_norm)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launched, syncs = launches[kname] - before, loop.host_syncs["count"] - syncs0
+    if route is not None:
+        require(isinstance(smm.auto_route_for_solve(
+            csr, has_preconditioner="preconditioner" in kw), route),
+            f"{label}: routed to {route.__name__}", quiet=True)
+    status, its = res.status_enum(), res.iterations
+    reported = float(res.residual_norm)
+    true64, same = host_residuals(csr, b, res.x)
+    f64 = b.dtype == torch.float64
+    ref = true64 if f64 else same
+    print(f"{label}: {status.name} iterations={its} residual_norm={reported:.6e} host f64 "
+          f"{true64:.6e} same-precision {same:.6e}; wall {walls[0]:.3f} s then "
+          f"{walls[1]:.4f} s, {1e6 * walls[1] / max(its, 1):.1f} us/iteration, {syncs} host "
+          f"syncs, {launched} {kname} launches")
+    require(status == smm.SolverStatus.SUCCESS, f"{label}: status {status.name}", quiet=True)
+    require(tuple(res.x.shape) == (csr.shape[0],) and bool(torch.isfinite(res.x).all()),
+            f"{label}: x finite, shape {tuple(res.x.shape)}", quiet=True)
+    require(abs(reported - ref) <= 0.01 * ref,
+            f"{label}: residual_norm {reported:.6e} within 1% of the host {ref:.6e}", quiet=True)
+    require(launched >= per_iteration * its,
+            f"{label}: {launched} {kname} launches >= {per_iteration} x {its}", quiet=True)
+    return res
+
+
+def phase_w(smm, loop, torch, dev, cg_f64_its):
+    """The general-pattern path at full width: the JAX bench's unstructured
+    system (laplace_3d_jittered(113), 1.44M rows, 17.5M nnz) through W-SELL,
+    its IC(0) strict factors through W-SELL, a shuffled poisson_2d(1414)
+    through RCM + W-SELL, ELL; kernels K6-K8 against their plain versions,
+    then the solves with every launch counter reset just before them."""
+    import numpy as np
+
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+    from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+
+    print("== phase W: general patterns (W-SELL K7/K8, RCM, ELL K6) at full width")
+    t0 = time.perf_counter()
+    jit = {dt: smm.laplace_3d_jittered(113, symmetric=True, shift=0.25, dtype=dt, device=dev)
+           for dt in (torch.float32, torch.float64)}
+    t1 = time.perf_counter()
+    ws = {dt: smm.auto_route_for_solve(c) for dt, c in jit.items()}  # cached for the solves
+    t2 = time.perf_counter()
+    ic = {dt: smm.IC0Preconditioner.from_matrix(c, method="jacobi", sweeps=4)
+          for dt, c in jit.items()}
+    t3 = time.perf_counter()
+    ell = {dt: smm.ell_from_csr(c) for dt, c in jit.items()}
+    t4 = time.perf_counter()
+    p64 = smm.poisson_2d(1414, dtype=torch.float64, device=dev)
+    shuffled = smm.permute_csr(p64, np.random.default_rng(0).permutation(p64.shape[0]))
+    del p64
+    t5 = time.perf_counter()
+    ro = smm.auto_route_for_solve(shuffled)  # DIA and W-SELL refuse, RCM + W-SELL packs
+    t6 = time.perf_counter()
+    w32, w64 = ws[torch.float32], ws[torch.float64]
+    lower32 = ic[torch.float32].lower
+    require(isinstance(w32, smm.WSellMatrix) and isinstance(w64, smm.WSellMatrix)
+            and isinstance(ro, smm.ReorderedMatrix) and lower32.wsell is not None,
+            "jittered -> W-SELL, shuffled -> RCM + W-SELL, IC(0) strict parts -> W-SELL",
+            quiet=True)
+    print(f"laplace_3d_jittered(113): n={w32.shape[0]} nnz={w32.nnz} nway={w32.nway} "
+          f"slot_ratio={w32.slot_ratio:.3f} vregs={w32.n_vregs}; IC(0) strict L slot_ratio "
+          f"{lower32.wsell.slot_ratio:.3f} (window_f {lower32.wsell.window_f}); shuffled "
+          f"poisson_2d(1414) RCM slot_ratio {ro.inner.slot_ratio:.3f}; ELL K={ell[torch.float32].slots}."
+          f" Host builds: 2 matrices {t1 - t0:.1f} s, 2 W-SELL routes {t2 - t1:.1f} s, 2 IC(0) "
+          f"with W-SELL strict parts {t3 - t2:.1f} s, 2 ELL {t4 - t3:.1f} s, shuffle "
+          f"{t5 - t4:.1f} s, route of the shuffled system {t6 - t5:.1f} s")
+
+    stats = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(*shape, dtype):
+        return (torch.rand(*shape, generator=gen, device=dev, dtype=torch.float64) - 0.5).to(dtype)
+
+    def lib_of(csr, dtype):
+        return library_csr(torch, csr.data.to(dtype), csr.indices, csr.indptr, csr.shape)
+
+    def w7():
+        return W.launches["wsell_spmv"]
+
+    # K7: the jittered system in f32 and f64, the RCM-permuted shuffled
+    # system, the IC(0) strict factor layout
+    ro32 = ro.inner.astype(torch.float32)  # the stencil's values are exact in f32
+    lt = lower32
+    crow = torch.zeros(lt.n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(lt.row_ids, minlength=lt.n), 0)
+    k7_cases = [(f"K7 jittered {str(dt)[6:]}", ws[dt], jit[dt], dt) for dt in ws]
+    k7_cases += [("K7 shuffled poisson_2d(1414) RCM f32", ro32, ro.inner_csr, torch.float32),
+                 ("K7 IC(0) strict L jittered f32", lt.wsell,
+                  smm.CSRMatrix(data=lt.data, indices=lt.indices, indptr=crow, row_ids=lt.row_ids,
+                                shape=(lt.n, lt.n)), torch.float32)]
+    for label, a, csr, dt in k7_cases:
+        x = rand(a.shape[1], dtype=dt)
+        lib = lib_of(csr, dt)
+        kernel_case(torch, stats, "wsell_spmv", label, lambda: W.wsell_spmv(a, x),
+                    lambda: W.wsell_spmv_plain(a, x), lambda: lib @ x,
+                    wsell_bytes(a, 1, x.element_size()), a.shape[0], w7)
+    # K8 at k = 4 (the solves' panel width) and 8, f32
+    lib = lib_of(jit[torch.float32], torch.float32)
+    for k in (4, 8):
+        xs = rand(w32.shape[1], k, dtype=torch.float32)
+        kernel_case(torch, stats, "wsell_spmm", f"K8 jittered f32 k={k}",
+                    lambda: W.wsell_spmm(w32, xs), lambda: W.wsell_spmm_plain(w32, xs),
+                    lambda: lib @ xs, wsell_bytes(w32, k, 4, per_vreg=0), w32.shape[0],
+                    lambda: W.launches["wsell_spmm"], calls=10)
+    # K6 on the ELL layout of the jittered system (K = its longest row)
+    for dt, e in ell.items():
+        x = rand(e.shape[1], dtype=dt)
+        lib = lib_of(jit[dt], dt)
+        kernel_case(torch, stats, "ell_spmv", f"K6 ELL jittered {str(dt)[6:]}",
+                    lambda: E.ell_spmv(e, x), lambda: E.ell_spmv_plain(e, x), lambda: lib @ x,
+                    ell_bytes(e, x.element_size()), e.shape[0], lambda: E.launches["ell_spmv"])
+    del lib, x, xs
+
+    # -- the solves: counters at 0 just before, read just after ----------------
+    for mod in (K, T, W, E):
+        mod.reset_launch_counts()
+    f32 = dict(epsilon=1e-4, max_iterations=600)
+    f64 = dict(epsilon=1e-8, max_iterations=600)
+    b = {}
+    for dt, a in ws.items():
+        ab = a @ torch.ones(a.shape[1], dtype=dt, device=dev)
+        b[dt] = ab / torch.linalg.norm(ab)  # the JAX bench's right-hand side
+    res = {}
+    for dt, kw in ((torch.float32, f32), (torch.float64, f64)):
+        name = str(dt)[6:]
+        res[f"cg {name}"] = general_solve(
+            smm, loop, torch, f"cg jittered(113) {name}", smm.cg, jit[dt], b[dt], jit[dt], kw,
+            W.launches, "wsell_spmv", 1, route=smm.WSellMatrix)
+        res[f"pcg {name}"] = general_solve(
+            smm, loop, torch, f"cg+ic0(4) jittered(113) {name}", smm.cg, jit[dt], b[dt], jit[dt],
+            dict(kw, preconditioner=ic[dt]), W.launches, "wsell_spmv", 1 + 2 * 3,
+            route=smm.WSellMatrix)
+    b_sh = shuffled @ torch.ones(shuffled.shape[0], dtype=torch.float64, device=dev)
+    sh = general_solve(smm, loop, torch, "cg shuffled poisson_2d(1414) f64", smm.cg, shuffled,
+                       b_sh, shuffled, dict(epsilon=1e-8, max_iterations=20000), W.launches,
+                       "wsell_spmv", 1, route=smm.ReorderedMatrix)
+    require(abs(sh.iterations - cg_f64_its) <= 0.01 * cg_f64_its,
+            f"shuffled CG: {sh.iterations} iterations within 1% of the unshuffled "
+            f"{cg_f64_its}", quiet=True)
+    e32 = ell[torch.float32]
+    general_solve(smm, loop, torch, "cg ELL jittered(113) f32", smm.cg, e32, b[torch.float32],
+                  jit[torch.float32], f32, E.launches, "ell_spmv", 1)
+    xs = rand(w32.shape[1], 4, dtype=torch.float32)
+    n8, n7 = W.launches["wsell_spmm"], W.launches["wsell_spmv"]
+    ys = smm.rmult(w32, xs)
+    cols = [smm.rmult(w32, xs[:, j].contiguous()) for j in range(4)]
+    torch.cuda.synchronize()
+    require(W.launches["wsell_spmm"] == n8 + 1 and W.launches["wsell_spmv"] == n7 + 4
+            and all(torch.equal(ys[:, j], cols[j]) for j in range(4)),
+            "rmult(W-SELL, X (n, 4)): one K8 launch, equal to four K7 products", quiet=True)
+    counts = {**W.launches, **E.launches}
+    print(f"phase W launches: {counts}; iterations: "
+          + ", ".join(f"{k} {r.iterations}" for k, r in res.items()))
+    for kname, n in counts.items():
+        require(n > 0, f"general path launched {kname} {n} times", quiet=True)
+    return stats, counts
+
+
 def phase_c(smm, torch, dev):
     """A small solve against scipy's direct solve."""
     import numpy as np
@@ -487,36 +738,44 @@ def main() -> int:
     with ThreadPoolExecutor(2) as pool:
         kernels_s, native_s = (f.result() for f in [pool.submit(timed, _build.library),
                                                     pool.submit(timed, native.library)])
-    print(f"built {_SOURCE} and {_TRI_SOURCE} in {kernels_s:.2f} s; "
-          f"{native.SOURCE.relative_to(_ROOT)} in {native_s:.2f} s")
-    require(native.available(), "native IC(0)/ILU(0) factorization library built and loaded")
+    built = (f"built {', '.join(p.name for p in _build.SOURCES)} with nvcc in {kernels_s:.2f} s; "
+             f"{native.SOURCE.relative_to(_ROOT)} with g++ in {native_s:.2f} s")
+    print(built)
+    require(native.available(), "native factorization and W-SELL layout library built and loaded")
 
     stats = phase_a(smm, K, torch, dev)
-    counts = phase_b(smm, K, _loop, torch, dev)
+    counts, cg_f64_its = phase_b(smm, K, _loop, torch, dev)
     pcounts = phase_p(smm, K, T, _loop, torch, dev)
+    wstats, wcounts = phase_w(smm, _loop, torch, dev, cg_f64_its)
     phase_c(smm, torch, dev)
 
+    def entry(name, source, replaces, launches, st, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
+                "launches": launches, "max_abs_err": st["err"], "ms": st["ms"],
+                "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": "bytes",
+                "library_ms": st["library_ms"]}
+
     kernels = [
-        {"name": "dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)", "route": "cuda",
-         "source": _SOURCE, "replaces": f"{_PALLAS}:254", "also_replaces": f"{_PALLAS}:281",
-         "launches": counts["dia_spmv_padded"],
-         "max_abs_err": stats["dia_spmv_padded"]["err"],
-         "ms": stats["dia_spmv_padded"]["ms"], "plain_ms": stats["dia_spmv_padded"]["plain_ms"]},
-        {"name": "dia_kernel (dia_spmv)", "route": "cuda", "source": _SOURCE,
-         "replaces": f"{_PALLAS}:91", "launches": counts["dia_spmv"],
-         "max_abs_err": stats["dia_spmv"]["err"],
-         "ms": stats["dia_spmv"]["ms"], "plain_ms": stats["dia_spmv"]["plain_ms"]},
-        {"name": "sgs_apply (smm_sgs_apply_*: scale_kernel + sweep_kernel)", "route": "cuda",
-         "source": _TRI_SOURCE, "replaces": f"{_TRI_PALLAS}:54",
-         "entry": f"{_TRI_PALLAS}:168", "launches": pcounts["sgs_apply"],
-         "max_abs_err": stats["sgs_apply"]["err"],
-         "ms": stats["sgs_apply"]["ms"], "plain_ms": stats["sgs_apply"]["plain_ms"]},
-        {"name": "tri_pair_apply (smm_tri_pair_apply_*: scale_kernel + sweep_kernel)",
-         "route": "cuda", "source": _TRI_SOURCE, "replaces": f"{_TRI_PALLAS}:54",
-         "entry": f"{_TRI_PALLAS}:243", "launches": pcounts["tri_pair_apply"],
-         "max_abs_err": stats["tri_pair_apply"]["err"],
-         "ms": stats["tri_pair_apply"]["ms"], "plain_ms": stats["tri_pair_apply"]["plain_ms"]},
+        entry("dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)", _SOURCE,
+              f"{_PALLAS}:254", counts["dia_spmv_padded"], stats["dia_spmv_padded"],
+              also_replaces=f"{_PALLAS}:281"),
+        entry("dia_kernel (dia_spmv)", _SOURCE, f"{_PALLAS}:91", counts["dia_spmv"],
+              stats["dia_spmv"]),
+        entry("sgs_apply (smm_sgs_apply_*: scale_kernel + sweep_kernel)", _TRI_SOURCE,
+              f"{_TRI_PALLAS}:54", pcounts["sgs_apply"], stats["sgs_apply"],
+              entry=f"{_TRI_PALLAS}:168"),
+        entry("tri_pair_apply (smm_tri_pair_apply_*: scale_kernel + sweep_kernel)", _TRI_SOURCE,
+              f"{_TRI_PALLAS}:54", pcounts["tri_pair_apply"], stats["tri_pair_apply"],
+              entry=f"{_TRI_PALLAS}:243"),
+        entry("ell_kernel (ell_spmv)", _ELL_SOURCE, f"{_PALLAS}:392", wcounts["ell_spmv"],
+              wstats["ell_spmv"], entry=f"{_PALLAS}:405"),
+        entry("wsell_kernel k=1 (wsell_spmv)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:89",
+              wcounts["wsell_spmv"], wstats["wsell_spmv"], also_replaces=f"{_WSELL_PALLAS}:119",
+              entry=f"{_WSELL_PALLAS}:207"),
+        entry("wsell_kernel k=2..8 (wsell_spmm)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:165",
+              wcounts["wsell_spmm"], wstats["wsell_spmm"], entry=f"{_WSELL_PALLAS}:287"),
     ]
+    print(built)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
-"""PyTorch/CUDA port of sparse_matrix_math_tpu: the DIA solve path and its
-preconditioners.
+"""PyTorch/CUDA port of sparse_matrix_math_tpu: the DIA and general-pattern
+solve paths and their preconditioners.
 
 Load or build a CSR matrix on a device, then solve with :func:`cg` or
 :func:`bicgstab`, optionally preconditioned (Jacobi, SGS, IC0, ILU0), and
 get a :class:`SolveResult` back.  A large CSR matrix on a CUDA device is
-routed to DIA; every iteration's matvec is the hand-written DIA kernel in
-``csrc/dia_spmv.cu``, and every SGS, IC0 or ILU0 apply one call of the
-fused sweep kernels in ``csrc/trisweep.cu``.  Public names follow the JAX
+routed to DIA, else to W-SELL, else (with no preconditioner) through an RCM
+renumbering to W-SELL.  The matvec of a DIA solve is the hand-written kernel
+in ``csrc/dia_spmv.cu`` and its SGS, IC0 or ILU0 apply one call of the fused
+sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, and
+each strict-factor product of its preconditioner, is ``csrc/wsell_spmv.cu``;
+an ELL matrix's is ``csrc/ell_spmv.cu``.  Public names follow the JAX
 package.
 """
 
@@ -14,12 +17,23 @@ from .formats import (
     COOArrays,
     CSRMatrix,
     DIAMatrix,
+    ELLMatrix,
+    HYBMatrix,
     PerformanceWarning,
+    ReorderedMatrix,
+    WSellMatrix,
     auto_route_for_solve,
     coo_from_arrays,
     csr_from_coo,
     dia_from_csr,
+    ell_from_csr,
+    hyb_from_csr,
+    permute_csr,
+    rcm_permutation,
+    reorder_to_wsell,
     try_dia_from_csr,
+    try_wsell_from_csr,
+    wsell_from_csr,
 )
 from .io import MatrixLoadStatus, MatrixMarketError, load_matrix_csr
 from .ops import dot, norm2, rmult, rmult_add, rmult_sub
@@ -37,20 +51,26 @@ from .solvers import SolveResult, SolverStatus, bicgstab, cg, conjugate_gradient
 from .utils import (
     convection_diffusion_2d,
     laplace_1d,
+    laplace_3d_jittered,
     poisson_2d,
     poisson_3d,
     poisson_3d_27pt,
+    random_spd_csr,
+    uniform_random_csr,
 )
 
 __all__ = [
     "COOArrays", "CSRMatrix", "DIAMatrix", "PerformanceWarning", "auto_route_for_solve",
     "coo_from_arrays", "csr_from_coo", "dia_from_csr", "try_dia_from_csr",
+    "ELLMatrix", "ell_from_csr", "HYBMatrix", "hyb_from_csr", "WSellMatrix", "wsell_from_csr",
+    "try_wsell_from_csr", "ReorderedMatrix", "permute_csr", "rcm_permutation",
+    "reorder_to_wsell",
     "MatrixLoadStatus", "MatrixMarketError", "load_matrix_csr",
     "dot", "norm2", "rmult", "rmult_add", "rmult_sub",
     "FactorizationError", "IdentityPreconditioner", "JacobiPreconditioner",
     "SGSPreconditioner", "ILU0Preconditioner", "IC0Preconditioner", "SolverPreconditioner",
     "get_preconditioner",
     "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient",
-    "convection_diffusion_2d", "laplace_1d", "poisson_2d", "poisson_3d",
-    "poisson_3d_27pt",
+    "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",
+    "poisson_3d", "poisson_3d_27pt", "random_spd_csr", "uniform_random_csr",
 ]

@@ -12,6 +12,10 @@ import torch
 
 from .formats.csr import CSRMatrix
 from .formats.dia import DIAMatrix
+from .formats.ell import ELLMatrix
+from .formats.hyb import HYBMatrix
+from .formats.reorder import ReorderedMatrix
+from .formats.wsell import WSellMatrix, slab_pointers
 from .precond.preconditioners import (
     IC0Preconditioner,
     ILU0Preconditioner,
@@ -21,7 +25,8 @@ from .precond.preconditioners import (
 from .precond.trisolve import TriangularMatrix
 
 __all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy", "triangular_from_numpy",
-           "sgs_from_numpy", "ic0_from_numpy", "ilu0_from_numpy"]
+           "sgs_from_numpy", "ic0_from_numpy", "ilu0_from_numpy", "wsell_from_numpy",
+           "ell_from_numpy", "hyb_from_numpy", "reordered_from_numpy"]
 
 
 def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
@@ -50,6 +55,52 @@ def dia_from_numpy(diags, offsets, shape, nnz, device) -> DIAMatrix:
                      shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
 
 
+def wsell_from_numpy(fields, device) -> WSellMatrix:
+    """A :class:`WSellMatrix` from a mapping of its fields: the planes
+    ``vals``, ``meta``, ``base`` and ``slab``, and ``shape``, ``nnz``,
+    ``n_slabs``, ``x_rows``, ``slot_ratio``, ``window_f`` and ``nway``.
+    ``slab_ptr`` is derived from ``slab``."""
+    slab = np.asarray(fields["slab"], dtype=np.int32)
+    planes = dict(vals=np.asarray(fields["vals"]), meta=np.asarray(fields["meta"], np.int32),
+                  base=np.asarray(fields["base"], np.int32), slab=slab,
+                  slab_ptr=slab_pointers(slab, int(fields["n_slabs"])))
+    return WSellMatrix(**{k: torch.tensor(v, device=device) for k, v in planes.items()},
+                       shape=(int(fields["shape"][0]), int(fields["shape"][1])),
+                       nnz=int(fields["nnz"]), n_slabs=int(fields["n_slabs"]),
+                       x_rows=int(fields["x_rows"]), slot_ratio=float(fields["slot_ratio"]),
+                       window_f=int(fields["window_f"]), nway=int(fields["nway"]))
+
+
+def ell_from_numpy(vals, cols, shape, nnz, device) -> ELLMatrix:
+    """An :class:`ELLMatrix` from its ``(rows_padded, K)`` planes."""
+    return ELLMatrix(vals=torch.tensor(np.asarray(vals), device=device),
+                     cols=torch.tensor(np.asarray(cols, dtype=np.int32), device=device),
+                     shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
+def hyb_from_numpy(dia, rest, shape, nnz, device) -> HYBMatrix:
+    """A :class:`HYBMatrix` from its parts: ``dia`` is None or a mapping with
+    ``diags``, ``offsets`` and ``nnz``; ``rest`` is None or a mapping with
+    ``indptr``, ``indices`` and ``data``."""
+    d = None if dia is None else dia_from_numpy(dia["diags"], dia["offsets"], shape,
+                                                dia["nnz"], device)
+    r = None if rest is None else csr_from_numpy(rest["indptr"], rest["indices"],
+                                                 rest["data"], shape, device)
+    return HYBMatrix(dia=d, rest=r, shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
+def reordered_from_numpy(inner, inner_csr, perm, iperm, shape, nnz) -> ReorderedMatrix:
+    """A :class:`ReorderedMatrix` from the port's inner operator and permuted
+    CSR (built with the converters above) and the host permutations, placed
+    on the inner operator's device."""
+    device = inner.device
+    return ReorderedMatrix(
+        inner=inner, inner_csr=inner_csr,
+        perm=torch.tensor(np.asarray(perm, dtype=np.int64), device=device),
+        iperm=torch.tensor(np.asarray(iperm, dtype=np.int64), device=device),
+        shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
 def jacobi_from_numpy(inv_diag, device) -> JacobiPreconditioner:
     """A :class:`JacobiPreconditioner` from its inverse diagonal."""
     return JacobiPreconditioner(inv_diag=torch.tensor(np.asarray(inv_diag), device=device))
@@ -58,7 +109,8 @@ def jacobi_from_numpy(inv_diag, device) -> JacobiPreconditioner:
 def triangular_from_numpy(fields, device) -> TriangularMatrix:
     """A :class:`TriangularMatrix` from a mapping of its fields: the arrays
     ``data``, ``indices``, ``row_ids``, ``diag`` and ``dense`` (None when
-    absent), and ``n``, ``lower``, ``depth``, ``method``, ``sweeps``."""
+    absent), and ``n``, ``lower``, ``depth``, ``method``, ``sweeps``; an
+    optional ``wsell``, a mapping for :func:`wsell_from_numpy` (or None)."""
     def tensor(name, dtype=None):
         return torch.tensor(np.asarray(fields[name], dtype=dtype), device=device)
 
@@ -68,6 +120,7 @@ def triangular_from_numpy(fields, device) -> TriangularMatrix:
         dense=None if fields.get("dense") is None else tensor("dense"),
         n=int(fields["n"]), lower=bool(fields["lower"]), depth=int(fields["depth"]),
         method=str(fields["method"]), sweeps=int(fields["sweeps"]),
+        wsell=None if fields.get("wsell") is None else wsell_from_numpy(fields["wsell"], device),
     )
 
 

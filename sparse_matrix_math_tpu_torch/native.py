@@ -6,12 +6,14 @@ path in the checkout: it is neither copied nor imported through the JAX
 package (whose import pulls in jax).  It is compiled at first use with the
 JAX package's flags (``g++ -O3 -march=native -std=c++17 -shared -fPIC``,
 plus ``-fopenmp`` when that compiles) into this package's ``build/``
-directory under a name that hashes the source and the flags.  Only
-``smm_ic0_factorize`` and ``smm_ilu0_factorize`` are bound.
+directory under a name that hashes the source and the flags.  Bound:
+``smm_ic0_factorize`` and ``smm_ilu0_factorize`` (native/__init__.py:193-246)
+and the W-SELL layout routines ``smm_wsell_plan``, ``smm_wsell_emit`` and
+``smm_wsell_color`` (native/__init__.py:175-185, 288-311, 462-523).
 
 Like the JAX binding, a missing compiler or a failed build leaves the
-library unavailable, and the factorizations fall back to their Python
-loops (precond/_factorize.py).
+library unavailable: each call then returns None, and its caller falls back
+to Python (precond/_factorize.py, formats/wsell.py).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["available", "library", "ic0_factorize", "ilu0_factorize", "SOURCE"]
+__all__ = ["available", "library", "ic0_factorize", "ilu0_factorize", "wsell_plan",
+           "wsell_emit", "wsell_color", "SOURCE"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG.parent / "sparse_matrix_math_tpu" / "native" / "smm_native.cpp"
@@ -34,6 +37,7 @@ _BUILD_DIR = _PKG / "build"
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
@@ -78,6 +82,21 @@ def library() -> Optional[ctypes.CDLL]:
     lib.smm_ilu0_factorize.argtypes = [
         ctypes.c_int64, _i64p, _i64p, _i64p, _f64p, ctypes.c_double,
         ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.smm_wsell_color.restype = ctypes.c_int64
+    lib.smm_wsell_color.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _i64p, _i64p, _i64p, _i64p, _i64p, _i32p,
+    ]
+    lib.smm_wsell_plan.restype = ctypes.c_int64
+    lib.smm_wsell_plan.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _i64p, _i64p, _i64p, _i32p, _i64p, _i64p, _i64p,
+    ]
+    lib.smm_wsell_emit.restype = ctypes.c_int
+    lib.smm_wsell_emit.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        _i64p, _i64p, ctypes.c_void_p, _i64p, _i32p, _i64p, _i32p,
+        ctypes.c_void_p, _i32p,
     ]
     return lib
 
@@ -136,3 +155,62 @@ def ilu0_factorize(indptr, indices, diag_pos, data, pivot_tol: float = 0.0
     if rc != 0:
         raise RuntimeError(f"smm_ilu0_factorize returned {rc}")
     return factor
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int64)
+
+
+def wsell_color(job, t, lane, lsrc, sw, n_jobs: int) -> Optional[np.ndarray]:
+    """First-fit W-SELL slot-row colouring: an int32 slot row per nnz
+    meeting the layout's constraints (formats/wsell.py), or None when the
+    library is unavailable or refuses the input."""
+    lib = library()
+    if lib is None:
+        return None
+    row = np.empty(job.shape[0], np.int32)
+    rc = lib.smm_wsell_color(job.shape[0], int(n_jobs), _i64(job), _i64(t), _i64(lane),
+                             _i64(lsrc), _i64(sw), row)
+    return None if rc < 0 else row
+
+
+def wsell_plan(r, c, n_rows: int, x_rows: int, window_f: int):
+    """The fused W-SELL layout plan: per nnz (job, int32 slot row), per job
+    (8·K rows, window base, slab); None when the library is unavailable or
+    the job key span is too large for its dense map."""
+    lib = library()
+    if lib is None:
+        return None
+    n = r.shape[0]
+    job = np.empty(n, np.int64)
+    row = np.empty(n, np.int32)
+    job_rows, job_base, job_slab = (np.empty(n, np.int64) for _ in range(3))
+    n_jobs = lib.smm_wsell_plan(n, int(n_rows), int(x_rows), int(window_f), _i64(r), _i64(c),
+                                job, row, job_rows, job_base, job_slab)
+    if n_jobs < 0:
+        return None
+    k = int(n_jobs)
+    return job, row, job_rows[:k], job_base[:k], job_slab[:k]
+
+
+def wsell_emit(lsrc_shift: int, wrows: int, r, c, v: np.ndarray, job, row,
+               vreg_start_of_job, base_vreg, vals_plane: np.ndarray,
+               meta_plane: np.ndarray) -> Optional[bool]:
+    """Scatter the W-SELL vals and meta planes in place.  True on success;
+    None when the library is unavailable or the value type is neither
+    float32 nor float64.  Raises AssertionError when a window sublane falls
+    outside ``[0, wrows)``."""
+    lib = library()
+    if lib is None or v.dtype != vals_plane.dtype or v.dtype not in (np.float32, np.float64):
+        return None
+    assert vals_plane.flags["C_CONTIGUOUS"] and meta_plane.flags["C_CONTIGUOUS"]
+    rc = lib.smm_wsell_emit(
+        r.shape[0], int(lsrc_shift), int(wrows), int(v.dtype == np.float64), _i64(r), _i64(c),
+        np.ascontiguousarray(v).ctypes.data_as(ctypes.c_void_p), _i64(job),
+        np.ascontiguousarray(row, np.int32), _i64(vreg_start_of_job),
+        np.ascontiguousarray(base_vreg, np.int32),
+        vals_plane.ctypes.data_as(ctypes.c_void_p), meta_plane,
+    )
+    if rc != 0:
+        raise AssertionError(f"window base math violated sw in [0, {wrows})")
+    return True

@@ -23,7 +23,8 @@ from pathlib import Path
 __all__ = ["library", "check", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "dia_spmv.cu", _PKG / "csrc" / "trisweep.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("dia_spmv.cu", "trisweep.cu", "wsell_spmv.cu", "ell_spmv.cu"))
 _BUILD_DIR = _PKG / "build"
 _COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,6 +50,13 @@ _SIGNATURES = {
     # out, sweeps, n_total, lead, n_rows, stream
     "smm_tri_pair_apply_f32": _APPLY,
     "smm_tri_pair_apply_f64": _APPLY,
+    # vals, meta, base, slab_ptr, x, y, n_slabs, n_rows, n_cols, k, sw_bits,
+    # nway, stream
+    "smm_wsell_spmm_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _I, _P],
+    "smm_wsell_spmm_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _I, _P],
+    # vals, cols, x, y, n_rows, k_slots, stream
+    "smm_ell_spmv_f32": [_P, _P, _P, _P, _LL, _I, _P],
+    "smm_ell_spmv_f64": [_P, _P, _P, _P, _LL, _I, _P],
 }
 
 

@@ -1,0 +1,73 @@
+"""ELL SpMV: the Hopper kernel and its plain version.
+
+Port of ``sparse_matrix_math_tpu/ops/pallas_spmv.py:389-452``.  The kernel
+is ``csrc/ell_spmv.cu`` (its header gives the bytes model): :func:`ell_spmv`
+(K6, TPU ``_ell_kernel``) computes ``y[i] = sum_k vals[i, k] * x[cols[i, k]]``
+for ``i < n_rows``, summing k in ascending order from the first product.
+
+A recorded deviation: the JAX package's ``rmult`` on an ``ELLMatrix`` runs
+XLA (ops/spmv.py:156-161), because Mosaic cannot compile the kernel's 1-D
+gather (pallas_spmv.py:435-449); the card gathers natively, so the port's
+``rmult`` on a CUDA ``ELLMatrix`` launches K6.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.  Each launch adds one to :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..formats.ell import ELLMatrix
+
+__all__ = ["ell_spmv", "ell_spmv_plain", "launches", "reset_launch_counts"]
+
+_DTYPES = (torch.float32, torch.float64)
+
+# Kernel launches per wrapper, counted where the kernel is launched.
+launches = {"ell_spmv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def ell_spmv_plain(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain K6: the first slot's product, then each later slot's product
+    added in slot order, over the first ``n_rows`` rows."""
+    n = a.shape[0]
+    cols = a.cols[:n].long()
+    acc = a.vals[:n, 0] * x[cols[:, 0]]
+    for k in range(1, a.slots):
+        acc = acc + a.vals[:n, k] * x[cols[:, k]]
+    return acc
+
+
+def ell_spmv(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """K6: y = A @ x for an ELL matrix and a length-``n_cols`` x."""
+    if a.vals.device != x.device:
+        raise ValueError(f"ELL planes on {a.vals.device} but x on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if a.dtype != x.dtype or x.dtype not in _DTYPES:
+        raise TypeError(f"planes ({a.dtype}) and x ({x.dtype}) must both be float32 "
+                        "or both float64")
+    if x.shape != (a.shape[1],):
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected ({a.shape[1]},)")
+    if a.cols.dtype != torch.int32 or not (a.vals.is_contiguous() and a.cols.is_contiguous()
+                                           and x.is_contiguous()):
+        raise ValueError("the planes must be contiguous, cols int32, and x contiguous")
+    if x.device.type == "cpu":
+        return ell_spmv_plain(a, x)
+    from . import _build
+
+    lib = _build.library()
+    fn = lib.smm_ell_spmv_f32 if x.dtype == torch.float32 else lib.smm_ell_spmv_f64
+    y = torch.empty(a.shape[0], dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        code = fn(a.vals.data_ptr(), a.cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+                  a.shape[0], a.slots, torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "ell_spmv")
+    launches["ell_spmv"] += 1
+    return y

@@ -1,11 +1,17 @@
 """SpMV family: y = op(lhs, A @ x).
 
-Port of ``sparse_matrix_math_tpu/ops/spmv.py:94-136, 164-211, 280-320``, the
+Port of ``sparse_matrix_math_tpu/ops/spmv.py:94-136, 156-320``, the
 reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
 
 * CSR — gather ``x`` by column, multiply, ``index_add_`` by row.  The JAX
   package computes this in XLA, not in a kernel, so plain torch is its port.
 * DIA — the hand-written kernel :func:`~.dia_spmv.dia_spmv` (K1).
+* ELL — the kernel :func:`~.ell_spmv.ell_spmv` (K6), one launch per column.
+  The JAX package runs XLA here (its Mosaic refuses the kernel's gather).
+* W-SELL — :func:`~.wsell_spmv.wsell_spmv` (K7) for a vector,
+  :func:`~.wsell_spmv.wsell_spmm` (K8) for an ``(n, k)`` panel.
+* HYB — the DIA part plus the CSR remainder; a ``ReorderedMatrix`` —
+  its inner operator between two permutations.
 * dense 2-D tensors — ``a @ x``; callables — ``a(x)``.
 """
 
@@ -17,7 +23,15 @@ import torch
 
 from ..formats.csr import CSRMatrix
 from ..formats.dia import DIAMatrix
+from ..formats.ell import ELLMatrix
+from ..formats.hyb import HYBMatrix
+from ..formats.reorder import ReorderedMatrix
+from ..formats.wsell import WSellMatrix
 from . import dia_spmv as _dia
+from . import ell_spmv as _ell
+from . import wsell_spmv as _wsell
+
+_FORMATS = (CSRMatrix, DIAMatrix, ELLMatrix, HYBMatrix, WSellMatrix, ReorderedMatrix)
 
 __all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator"]
 
@@ -29,8 +43,8 @@ def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 @singledispatch
 def rmult(a, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x (reference rMult, h:1501-1505) for a CSR or DIA matrix, a
-    dense 2-D tensor, or a matvec callable."""
+    """y = A @ x (reference rMult, h:1501-1505) for a sparse matrix of the
+    port's formats, a dense 2-D tensor, or a matvec callable."""
     if isinstance(a, torch.Tensor) and a.ndim == 2:
         return a @ x
     if callable(a):
@@ -62,6 +76,43 @@ def _rmult_dia(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
                         for j in range(x.shape[1])], dim=1)
 
 
+def _promoted(a, x: torch.Tensor):
+    """``a`` and ``x`` in their common value type, x contiguous."""
+    dtype = torch.promote_types(a.dtype, x.dtype)
+    return (a if a.dtype == dtype else a.astype(dtype)), x.to(dtype).contiguous()
+
+
+@rmult.register
+def _rmult_ell(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    a, x = _promoted(a, x)
+    if x.ndim == 1:
+        return _ell.ell_spmv(a, x)
+    # several right-hand sides: one kernel launch per column
+    return torch.stack([_ell.ell_spmv(a, x[:, j].contiguous()) for j in range(x.shape[1])],
+                       dim=1)
+
+
+@rmult.register
+def _rmult_wsell(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
+    a, x = _promoted(a, x)
+    if x.ndim == 1:
+        return _wsell.wsell_spmv(a, x)
+    return _wsell.wsell_spmm(a, x)
+
+
+@rmult.register
+def _rmult_reordered(a: ReorderedMatrix, x: torch.Tensor) -> torch.Tensor:
+    # acts as the original matrix: x into the permuted order and y back
+    # (the solvers hoist both out of their loops, formats/reorder.py)
+    return a.from_permuted(rmult(a.inner, a.to_permuted(x)))
+
+
+@rmult.register
+def _rmult_hyb(a: HYBMatrix, x: torch.Tensor) -> torch.Tensor:
+    parts = [rmult(p, x) for p in (a.dia, a.rest) if p is not None]
+    return parts[0] if len(parts) == 1 else parts[0] + parts[1]
+
+
 def rmult_add(a, lhs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = lhs + A @ x (reference rMultAdd, h:1507-1510)."""
     return lhs + rmult(a, x)
@@ -73,9 +124,9 @@ def rmult_sub(a, lhs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def as_operator(a):
-    """Check that ``a`` is an operator the solvers take: a CSR or DIA
-    matrix, a dense 2-D tensor, or a matvec callable."""
-    if isinstance(a, (CSRMatrix, DIAMatrix)) or callable(a):
+    """Check that ``a`` is an operator the solvers take: a sparse matrix of
+    the port's formats, a dense 2-D tensor, or a matvec callable."""
+    if isinstance(a, _FORMATS) or callable(a):
         return a
     if isinstance(a, torch.Tensor) and a.ndim == 2:
         return a

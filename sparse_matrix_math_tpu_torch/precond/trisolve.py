@@ -13,13 +13,14 @@ offers two strategies instead:
   ``x_{k+1} = D^{-1} (b - N x_k)`` with ``N`` the strict part.  ``D^{-1} N``
   is nilpotent with index equal to the level-schedule depth, so
   ``sweeps >= depth`` is exact; fewer sweeps give the usual approximate
-  triangular solve.  The strict product is a gather and an ``index_add_``.
+  triangular solve.
 
-The JAX package can also run the strict product through its W-SELL kernel
-(``strict_layout="wsell"``, TPU kernel K7).  That kernel is not ported yet
-(ROADMAP.md, Queue 2): ``"wsell"`` raises ``NotImplementedError`` and
-``"auto"`` means ``"csr"``.  A DIA matrix's preconditioner does not need it:
-the padded solve re-lays its factors for the fused sweep kernels.
+Each sweep's strict product runs through the W-SELL layout (kernel K7, or
+K8 for an ``(n, m)`` panel) when the strict part packs under the slot-ratio
+cap (trisolve.py:184-226), else it is a gather and an ``index_add_``.
+``strict_layout="auto"`` picks W-SELL for a factor on a CUDA device and the
+gather on the CPU.  A DIA matrix's preconditioner does not use either: the
+padded solve re-lays its factors for the fused sweep kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..formats.wsell import WSellMatrix, _wsell_from_coo
 
 __all__ = ["TriangularMatrix", "triangular_from_csr_arrays"]
 
@@ -44,7 +47,9 @@ class TriangularMatrix:
 
     ``data``/``indices``/``row_ids`` hold the STRICT part (row-major); ``diag``
     is the diagonal (all ones for a unit factor).  ``depth`` is the
-    level-schedule depth, or -1 when it was not needed.
+    level-schedule depth, or -1 when it was not needed.  ``wsell`` is the
+    strict part in the W-SELL layout, or None; when present, every sweep's
+    strict product runs the W-SELL kernel.
     """
 
     data: torch.Tensor      # (snnz,) strict-part values
@@ -57,6 +62,7 @@ class TriangularMatrix:
     depth: int
     method: str
     sweeps: int
+    wsell: Optional[WSellMatrix] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -67,6 +73,10 @@ class TriangularMatrix:
         return self.diag.device
 
     def _strict_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if self.wsell is not None:
+            from ..ops.spmv import rmult
+
+            return rmult(self.wsell, x)
         d = self.data[:, None] if x.ndim == 2 else self.data
         g = d * x.index_select(0, self.indices)
         return torch.zeros_like(x).index_add_(0, self.row_ids, g)
@@ -106,15 +116,14 @@ def triangular_from_csr_arrays(
 
     ``method="auto"`` picks ``dense`` for n <= ``dense_threshold``, else
     ``jacobi``.  ``sweeps="exact"`` takes the level-schedule depth and warns
-    past depth 64.
+    past depth 64.  ``strict_layout``: ``"wsell"`` lays a Jacobi factor's
+    strict part out as W-SELL (window_f 1, else 8) and keeps the gather path
+    when both pad past the cap; ``"csr"`` keeps the gather path; ``"auto"``
+    is ``"wsell"`` on a CUDA device and ``"csr"`` on the CPU.
     """
     if strict_layout not in ("auto", "wsell", "csr"):
         raise ValueError(f"unknown strict_layout {strict_layout!r}")
-    if strict_layout == "wsell":
-        raise NotImplementedError(
-            "strict_layout='wsell' needs the W-SELL kernel (K7), which is not "
-            "ported yet (ROADMAP.md, Queue 2); use 'csr' or 'auto'"
-        )
+    device = torch.device("cpu") if device is None else torch.device(device)
     data = np.asarray(data)
     indices = np.asarray(indices, dtype=np.int64)
     indptr = np.asarray(indptr, dtype=np.int64)
@@ -165,6 +174,17 @@ def triangular_from_csr_arrays(
         dmat[np.arange(n), np.arange(n)] = diag
         dense = torch.as_tensor(dmat, device=device)
 
+    wsell = None
+    if method == "jacobi" and s_data.size and (
+            strict_layout == "wsell" or (strict_layout == "auto" and device.type == "cuda")):
+        for wf in (1, 8):  # narrow windows first, wide for scattered patterns
+            try:
+                wsell = _wsell_from_coo(s_row, s_idx, s_data, (n, n), int(s_data.size),
+                                        device=device, max_slot_ratio=8.0, window_f=wf)
+                break
+            except ValueError:
+                wsell = None  # pads past the cap: try wider, else keep the gather
+
     return TriangularMatrix(
         data=torch.as_tensor(s_data, device=device),
         indices=torch.as_tensor(s_idx, device=device),
@@ -176,6 +196,7 @@ def triangular_from_csr_arrays(
         depth=int(depth),
         method=method,
         sweeps=int(n_sweeps),
+        wsell=wsell,
     )
 
 

@@ -1,8 +1,8 @@
 """Model-problem matrix generators.
 
-Port of ``sparse_matrix_math_tpu/utils/generate.py:28-200``: the same NumPy
-construction and the same values, returned as a :class:`CSRMatrix` on the
-device the caller names.
+Port of ``sparse_matrix_math_tpu/utils/generate.py:28-289, 362-389``: the
+same NumPy construction, the same random draws and the same values, returned
+as a :class:`CSRMatrix` on the device the caller names.
 """
 
 from __future__ import annotations
@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 from ..formats.csr import CSRMatrix, _csr_from_sorted
+from ..formats.triplet import host_coo_arrays
 
 __all__ = [
     "laplace_1d", "poisson_2d", "poisson_3d", "poisson_3d_27pt",
-    "convection_diffusion_2d",
+    "convection_diffusion_2d", "laplace_3d_jittered", "uniform_random_csr",
+    "random_spd_csr",
 ]
 
 
@@ -119,3 +121,80 @@ def convection_diffusion_2d(nx: int, ny: int = None, cx: float = 0.5, cy: float 
         vals.append(np.full(mask.sum(), v))
     return _sorted_csr(np.concatenate(rows), np.concatenate(cols),
                        np.concatenate(vals), (n, n), dtype, device)
+
+
+def _summed_csr(r, c, v, n: int, dtype, device) -> CSRMatrix:
+    """CSR of n-by-n COO arrays with duplicate entries summed, in the JAX
+    generators' order: a stable sort by (row, col), then ``np.add.at`` in
+    float64 (generate.py:280-289)."""
+    key = r * np.int64(n) + c
+    order = np.argsort(key, kind="stable")
+    key, r, c, v = key[order], r[order], c[order], v[order]
+    uniq = np.ones(key.shape[0], bool)
+    uniq[1:] = key[1:] != key[:-1]
+    grp = np.cumsum(uniq) - 1
+    v_sum = np.zeros(int(grp[-1]) + 1)
+    np.add.at(v_sum, grp, v)
+    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return _csr_from_sorted(as_t(r[uniq]), as_t(c[uniq]), as_t(v_sum).to(dtype), (n, n))
+
+
+def laplace_3d_jittered(m: int, jitter: int = 8, seed: int = 0, dtype=torch.float64,
+                        symmetric: bool = False, shift: float = 0.0, *,
+                        device) -> CSRMatrix:
+    """7-point 3-D Laplacian on an m^3 grid whose off-diagonal COLUMN indices
+    are moved by a random integer in ``[-jitter, jitter]``: the band survives
+    but no diagonal structure does, so DIA refuses it and W-SELL is the fast
+    path.  ``symmetric=True`` returns (A + A^T)/2; ``shift`` adds a constant
+    to the diagonal values (the pattern is unchanged).  Colliding entries
+    sum."""
+    n = m ** 3
+    i = np.arange(n)
+    iz, iy, ix = i // (m * m), (i // m) % m, i % m
+    rows, cols, vals = [i], [i], [np.full(n, 6.0 + shift)]
+    rng = np.random.default_rng(seed)
+    for off, valid in ((1, ix < m - 1), (-1, ix > 0), (m, iy < m - 1), (-m, iy > 0),
+                       (m * m, iz < m - 1), (-m * m, iz > 0)):
+        r = i[valid]
+        c = np.clip(r + off + rng.integers(-jitter, jitter + 1, r.shape[0]), 0, n - 1)
+        rows.append(r)
+        cols.append(c)
+        vals.append(np.full(r.shape[0], -1.0))
+    r, c, v = np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+    if symmetric:
+        r, c, v = np.concatenate([r, c]), np.concatenate([c, r]), np.concatenate([v, v]) * 0.5
+    return _summed_csr(r, c, v, n, dtype, device)
+
+
+def uniform_random_csr(n: int, per_row: int = 5, seed: int = 42, dtype=torch.float64, *,
+                       device) -> CSRMatrix:
+    """Diagonal ``per_row + 1`` plus ``per_row`` uniformly random
+    off-diagonal entries of -1 per row: the zero-locality pattern no
+    renumbering helps."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n, dtype=np.int64), per_row + 1)
+    c = np.empty((n, per_row + 1), np.int64)
+    c[:, 0] = np.arange(n)
+    c[:, 1:] = rng.integers(0, n, (n, per_row))
+    c = c.reshape(-1)
+    v = np.where(c == r, float(per_row + 1), -1.0)
+    return _summed_csr(r, c, v, n, dtype, device)
+
+
+def random_spd_csr(n: int, density: float = 0.05, seed: int = 0, dtype=torch.float64, *,
+                   device) -> CSRMatrix:
+    """Random symmetric, strictly diagonally dominant (hence SPD) matrix."""
+    rng = np.random.default_rng(seed)
+    nnz_target = max(int(n * n * density / 2), n)
+    r = rng.integers(0, n, nnz_target)
+    c = rng.integers(0, n, nnz_target)
+    off = r != c
+    r, c = r[off], c[off]
+    v = rng.uniform(-1.0, 1.0, r.shape[0])
+    rr, cc, vv, _ = host_coo_arrays(np.concatenate([r, c]), np.concatenate([c, r]),
+                                    np.concatenate([v, v]), (n, n), dtype=np.float64)
+    row_abs = np.zeros(n)
+    np.add.at(row_abs, rr, np.abs(vv))
+    diag = np.arange(n, dtype=np.int64)
+    return _sorted_csr(np.concatenate([rr, diag]), np.concatenate([cc, diag]),
+                       np.concatenate([vv, row_abs + 1.0]), (n, n), dtype, device)

@@ -14,7 +14,9 @@ import torch
 
 import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
 from sparse_matrix_math_tpu_torch.ops import trisweep as T
+from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 from sparse_matrix_math_tpu_torch.precond import PaddedSGS, PaddedTriPair
 
 pytestmark = pytest.mark.cuda
@@ -181,3 +183,106 @@ def test_preconditioned_solves_match_cpu(cuda_device, kind):
         assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
         name = "sgs_apply" if kind == "sgs" else "tri_pair_apply"
         assert T.launches[name] - before[name] >= gpu.iterations
+
+
+# -- general patterns: K6 (ELL), K7 and K8 (W-SELL) -------------------------------
+
+WSELL_CASES = [
+    ("poisson_2d", (48,), {}),
+    ("laplace_3d_jittered", (16,), dict(nway=4)),
+    ("laplace_3d_jittered", (14,), dict(nway=2, window_f=8)),
+    ("random_spd_csr", (600,), dict(nway=8, max_slot_ratio=64.0)),
+]
+
+
+def _csr(name, args, dtype, device):
+    kw = dict(symmetric=True, shift=0.25) if name == "laplace_3d_jittered" else {}
+    if name == "random_spd_csr":
+        kw = dict(density=0.012, seed=5)
+    return getattr(smm, name)(*args, dtype=dtype, device=device, **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name,args,kw", WSELL_CASES,
+                         ids=[f"{n}{a}{k}" for n, a, k in WSELL_CASES])
+def test_wsell_kernels_match_plain(cuda_device, name, args, kw, dtype):
+    ws = smm.wsell_from_csr(_csr(name, args, dtype, cuda_device), **kw)
+    gen = np.random.default_rng(0)
+    x = torch.as_tensor(gen.standard_normal(ws.shape[1]), device=cuda_device).to(dtype)
+    before = dict(W.launches)
+    y = W.wsell_spmv(ws, x)
+    torch.cuda.synchronize()
+    assert W.launches["wsell_spmv"] == before["wsell_spmv"] + 1
+    assert torch.equal(y, W.wsell_spmv_plain(ws, x))
+    for k in (1, 3, 8, 9):
+        xs = torch.as_tensor(gen.standard_normal((ws.shape[1], k)), device=cuda_device).to(dtype)
+        n0 = W.launches["wsell_spmm"]
+        ys = W.wsell_spmm(ws, xs)
+        torch.cuda.synchronize()
+        assert W.launches["wsell_spmm"] == n0 + -(-k // W.SPMM_COLUMNS)
+        assert torch.equal(ys, W.wsell_spmm_plain(ws, xs))
+        # each column of K8 is K7's product of that column
+        assert torch.equal(ys[:, 0], W.wsell_spmv(ws, xs[:, 0].contiguous()))
+
+
+def test_wsell_empty_slabs_and_rectangular(cuda_device):
+    rng = np.random.default_rng(11)
+    rows = np.array([0, 3, 4]), np.array([0, 5, 2400]), np.array([1.0, 2.5, -1.5])
+    m = rng.random((700, 1500)) < 0.01
+    cases = [(rows, (2500, 2500), dict(max_slot_ratio=1e9)),
+             ((*np.nonzero(m), rng.standard_normal(int(m.sum()))), (700, 1500), {})]
+    for (r, c, v), shape, kw in cases:
+        csr = smm.csr_from_coo(smm.coo_from_arrays(r, c, v, shape, device=cuda_device))
+        ws = smm.wsell_from_csr(csr, **kw)
+        x = torch.as_tensor(rng.standard_normal(shape[1]), device=cuda_device)
+        assert torch.equal(W.wsell_spmv(ws, x), W.wsell_spmv_plain(ws, x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name,args", [("poisson_2d", (37,)), ("laplace_3d_jittered", (16,))])
+def test_ell_kernel_matches_plain(cuda_device, name, args, dtype):
+    ell = smm.ell_from_csr(_csr(name, args, dtype, cuda_device))
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(ell.shape[1]),
+                        device=cuda_device).to(dtype)
+    before = E.launches["ell_spmv"]
+    y = E.ell_spmv(ell, x)
+    torch.cuda.synchronize()
+    assert E.launches["ell_spmv"] == before + 1
+    assert torch.equal(y, E.ell_spmv_plain(ell, x))
+
+
+def test_general_wrappers_raise_on_cuda(cuda_device):
+    csr = _csr("laplace_3d_jittered", (10,), torch.float64, cuda_device)
+    ws, ell = smm.wsell_from_csr(csr), smm.ell_from_csr(csr)
+    x = torch.ones(csr.shape[1], dtype=torch.float64, device=cuda_device)
+    for fn, a in ((W.wsell_spmv, ws), (E.ell_spmv, ell)):
+        with pytest.raises(TypeError):
+            fn(a, x.float())
+        with pytest.raises(ValueError):
+            fn(a, x.cpu())
+
+
+@pytest.mark.parametrize("kind", ["wsell", "ell", "reorder", "ic0"])
+def test_general_solves_match_cpu(cuda_device, kind):
+    """f64 solves on the card (kernels) against the CPU (plain versions):
+    the same status, iteration counts within 2 (the dots sum in other
+    orders), x within 1e-6."""
+    b = np.random.default_rng(2).standard_normal(16 ** 3 if kind != "reorder" else 32 * 32)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        if kind == "reorder":
+            csr = smm.poisson_2d(32, device=dev)
+            perm = np.random.default_rng(7).permutation(csr.shape[0])
+            op = smm.reorder_to_wsell(smm.permute_csr(csr, perm), max_slot_ratio=64)
+        else:
+            csr = _csr("laplace_3d_jittered", (16,), torch.float64, dev)
+            op = smm.ell_from_csr(csr) if kind == "ell" else smm.try_wsell_from_csr(csr)
+        pre = (smm.IC0Preconditioner.from_matrix(csr, method="jacobi", sweeps=4,
+                                                 strict_layout="wsell")
+               if kind == "ic0" else None)
+        res[str(dev)] = smm.cg(op, torch.as_tensor(b, device=dev), epsilon=1e-8,
+                               preconditioner=pre)
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+    assert abs(gpu.iterations - cpu.iterations) <= 2
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6

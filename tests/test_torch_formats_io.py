@@ -171,7 +171,8 @@ class TestAutoRoute:
         tcsr = smm.poisson_2d(160, device="cpu")
         b = tcsr @ torch.ones(160 * 160, dtype=torch.float64)
         res = smm.cg(tcsr, b, epsilon=1e-8)
-        assert isinstance(getattr(tcsr, "_auto_routed", None), smm.DIAMatrix)
+        kind, routed = tcsr._auto_routed  # the cached (kind, operator) route
+        assert kind == "dia" and isinstance(routed, smm.DIAMatrix)
         assert res.success
         np.testing.assert_allclose(res.x.numpy(), 1.0, atol=1e-6)
 

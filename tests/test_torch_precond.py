@@ -326,11 +326,21 @@ def test_dense_method_takes_the_generic_path(kind):
 
 
 def test_wsell_strict_layout_raises():
-    _, _, tcsr, _, _ = _systems("poisson_2d", 8, np.float64)
+    """``strict_layout="wsell"`` lays every Jacobi factor's strict part out
+    as W-SELL (it raised before the W-SELL kernel was ported); an unknown
+    layout raises.  At n=64 the strict parts pad past the slot-ratio cap at
+    both window widths and keep the gather path, as in the JAX package."""
+    _, _, tiny, _, _ = _systems("poisson_2d", 8, np.float64)
+    _, _, tcsr, _, _ = _systems("poisson_2d", 40, np.float64)
     for kind in ("sgs", "ic0", "ilu0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for csr, packs in ((tiny, False), (tcsr, True)):
+            pre = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=2,
+                                         strict_layout="wsell")
+            factors = (pre.fwd, pre.bwd) if kind == "sgs" else (pre.lower, pre.upper)
+            assert all(isinstance(t.wsell, smm.WSellMatrix) == packs for t in factors)
+        with pytest.raises(ValueError, match="strict_layout"):
             smm.get_preconditioner(tcsr, kind, method="jacobi", sweeps=2,
-                                   strict_layout="wsell")
+                                   strict_layout="ell")
 
 
 @pytest.mark.parametrize("kind", ["sgs", "ic0", "ilu0"])
