@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DIA and general-pattern solve paths once on one CUDA card.
+"""Drive the PyTorch port's DIA, general-pattern and double-word solve paths
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 It builds the hand-written kernels (``csrc/dia_spmv.cu``, ``csrc/trisweep.cu``,
-``csrc/wsell_spmv.cu``, ``csrc/ell_spmv.cu``) with nvcc, one process per
-source, and the native factorizations and W-SELL layout routines with g++,
-side by side.  Phase A holds each DIA kernel wrapper against its plain
+``csrc/wsell_spmv.cu``, ``csrc/ell_spmv.cu``, ``csrc/dia_spmv_df.cu``) with
+nvcc, one process per source, and the native factorizations and W-SELL layout
+routines (``csrc/smm_native.cpp``) with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
 PyTorch version on the card, in f32 and f64, at the systems the solve paths
 meet (up to the 243^3 Poisson system, 14.3M rows and 100M nnz), with
 timings: the DIA SpMV kernels, then the fused SGS (K4) and IC(0)/ILU(0) (K5)
@@ -22,7 +23,14 @@ general-pattern path: the JAX bench's unstructured system
 strict factors in W-SELL, a shuffled ``poisson_2d(1414)`` routed through
 RCM to W-SELL, and ELL: kernels K6 (ELL), K7 and K8 (W-SELL) against their
 plain versions beside the ``torch.sparse_csr_tensor`` product, then the
-solves with the counters reset just before them.  Phase C solves a small
+solves with the counters reset just before them.  Phase D does both for the
+double-word path (values as pairs of float32, hi + lo): the double-word DIA
+kernel K9/K10 against its plain version, both words bit for bit, on
+``poisson_2d(1414)``, ``poisson_3d(243)`` and ``poisson_3d_27pt(128)``, then
+``cg_df64``, ``bicgstab_df64``, ``cg_ir_df64`` and ``bicgstab_ir_df64`` with
+``PaddedSGS(4)`` on the bench's systems and ``cg_df64`` on the jittered
+system's ELL operator, each held to 1e-8 by a float64 host residual, with
+the launch counters reset just before the solves.  Phase C solves a small
 system and compares the solution with scipy's direct solve.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
@@ -49,6 +57,7 @@ _TRI_SOURCE = "sparse_matrix_math_tpu_torch/csrc/trisweep.cu"
 _WSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_wsell.py"
 _WSELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/wsell_spmv.cu"
 _ELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/ell_spmv.cu"
+_DF_SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv_df.cu"
 # the card's memory rate, for each kernel's bound: bytes / rate (H100 SXM
 # data sheet; the kernels here are bound by bytes, not operations)
 _HBM_BYTES_PER_S = 3.35e12
@@ -681,6 +690,238 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
     return stats, counts
 
 
+def df_operator_on_card(smm, torch, dia64):
+    """The double-word operator of a float64 DIA matrix whose values are
+    scaled by 1 + 1e-9·(row mod 997), so that the lo planes are not zero,
+    split on the card; and the scaled float64 matrix it represents."""
+    n_rows = dia64.shape[0]
+    ramp = 1.0 + 1e-9 * (torch.arange(n_rows, device=dia64.device, dtype=torch.float64) % 997)
+    diags = dia64.diags * ramp
+    hi = diags.to(torch.float32)
+    lo = (diags - hi.to(torch.float64)).to(torch.float32)
+    dfa = smm.DfDiaMatrix(diags_hi=hi, diags_lo=lo, offsets=dia64.offsets, shape=dia64.shape,
+                          nnz=dia64.nnz)
+    return dfa, smm.DIAMatrix(diags=diags, offsets=dia64.offsets, shape=dia64.shape,
+                              nnz=dia64.nnz)
+
+
+def df_kernel_cases(smm, D, K, torch, dev):
+    """K9 (and its K10 wrapper) against the plain version, both words bit
+    for bit, at the three systems of phase A; recombined hi + lo against the
+    float64 DIA kernel K1 on the same float64 matrix and x; timed beside
+    the float64 ``torch.sparse_csr_tensor`` product."""
+    systems = [("poisson_2d(1414)", smm.poisson_2d, (1414,)),
+               ("poisson_3d(243)", smm.poisson_3d, (243,)),
+               ("poisson_3d_27pt(128)", smm.poisson_3d_27pt, (128,))]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    stats = {"err": 0.0}
+    for label, make, args in systems:
+        csr = make(*args, device=dev)
+        dfa, dia64 = df_operator_on_card(smm, torch, smm.dia_from_csr(csr))
+        n_rows, nd = dfa.shape[0], len(dfa.offsets)
+        p = D.pad_dia_df(dfa)
+        x64 = torch.rand(n_rows, generator=gen, device=dev, dtype=torch.float64) - 0.5
+        xh, xl = (p.to_padded(w) for w in smm.df_from_host(x64, device=dev))
+
+        def kern():
+            return D.dia_spmv_padded_df(p, xh, xl)
+
+        def plain():
+            return D.dia_spmv_padded_df_plain(p.hi.diags_p, p.lo.diags_p, p.offsets, p.lead,
+                                              n_rows, xh, xl)
+
+        before = D.launches["dia_spmv_padded_df"]
+        (yh, yl), (rh, rl) = kern(), plain()
+        streamed = D.dia_spmv_streamed_df(p, xh, xl)
+        torch.cuda.synchronize()
+        err = max((yh - rh).abs().max().item(), (yl - rl).abs().max().item())
+        require(D.launches["dia_spmv_padded_df"] == before + 2,
+                f"K9 {label}: one launch per wrapper call", quiet=True)
+        require(torch.equal(yh, rh) and torch.equal(yl, rl) and torch.equal(streamed[0], rh)
+                and torch.equal(streamed[1], rl) and bool(torch.isfinite(yh).all()),
+                f"K9/K10 {label}: both words equal the plain version bit for bit "
+                f"(max abs err {err:.3e})")
+        require(all(bool((w[:p.lead] == 0).all()) and bool((w[p.lead + n_rows:] == 0).all())
+                    for w in (yh, yl)), f"K9 {label}: guard rows exactly (0, 0)", quiet=True)
+        # the recombined product against the float64 kernel on the values
+        # the two words hold
+        y64 = K.dia_spmv(dia64, p.from_padded(xh).double() + p.from_padded(xl).double())
+        got = p.from_padded(yh).double() + p.from_padded(yl).double()
+        rel = ((got - y64).abs().max() / y64.abs().max()).item()
+        require(rel <= 1e-12, f"K9 {label}: hi + lo within {rel:.2e} <= 1e-12 of the "
+                              "float64 product")
+        stats["err"] = max(stats["err"], err)
+        ms, plain_ms = median_ms(kern), median_ms(plain, samples=3, calls=2)
+        lib = library_csr(torch, csr.data, csr.indices, csr.indptr, csr.shape)
+        lib_ms = median_ms(lambda: lib @ x64)
+        nbytes = (2 * nd + 4) * 4 * n_rows
+        b_ms = bound_ms(nbytes)
+        print(f"  K9 {label}: n={n_rows} ndiags={nd}: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.0f} GB/s, {100 * b_ms / ms:.0f}% of the {b_ms:.4f} ms "
+              f"bound), plain {plain_ms:.3f} ms, float64 torch.sparse_csr_tensor {lib_ms:.4f} ms")
+        if "ms" not in stats:  # poisson_2d(1414): the main path's shape
+            # no PyTorch call computes a double-word product (library_ms
+            # null); the float64 CSR product is printed beside it
+            stats.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=None,
+                         f64_csr_ms=lib_ms)
+        del csr, dfa, dia64, p, x64, xh, xl, yh, yl, rh, rl, streamed, y64, got, lib
+        torch.cuda.empty_cache()
+    return stats
+
+
+def host_csr_arrays(csr):
+    return csr.data.cpu().numpy(), csr.indices.cpu().numpy(), csr.indptr.cpu().numpy()
+
+
+def df_solve(smm, torch, label, solver, a, b64, csr_host, kw, counts, checks,
+             may_stall=False):
+    """One double-word solve through the public entry, held to SUCCESS and
+    to the host's float64 ``||b - A x||`` (at most eps within 1%, and the
+    reported norm within 1% of it); ``counts()`` reads every launch counter,
+    ``checks`` maps a kernel name to the least number of launches this solve
+    must add given its result.  With ``may_stall`` a refinement may end
+    MAX_ITERATIONS_REACHED instead, if the iterate it returns is no worse
+    than x = 0 and its reported norm is the host's.  One printed line;
+    returns the result and its wall seconds."""
+    import numpy as np
+
+    data, indices, indptr = csr_host
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver(a, b64, **kw)
+    float(res.residual_norm2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = res.x_f64()
+    true64 = float(np.linalg.norm(b64 - np.add.reduceat(data * x[indices], indptr[:-1])))
+    reported = float(res.residual_norm2) ** 0.5
+    added = {k: v - before[k] for k, v in counts().items()}
+    its = res.iterations
+    rounds = "" if res.outer_rounds is None else f" in {res.outer_rounds} rounds"
+    print(f"{label}: {res.status_enum().name} iterations={its}{rounds} residual_norm="
+          f"{reported:.6e} host f64 {true64:.6e}; wall {wall:.3f} s, "
+          f"{1e6 * wall / max(its, 1):.1f} us/iteration; launches "
+          + ", ".join(f"{k} {v}" for k, v in added.items() if v))
+    eps = kw["epsilon"]
+    require(x.shape == (a.shape[0],) and bool(np.isfinite(x).all()), f"{label}: x finite",
+            quiet=True)
+    if may_stall and res.status == smm.SolverStatus.MAX_ITERATIONS_REACHED:
+        b_norm = float(np.linalg.norm(b64))
+        require(true64 <= b_norm and abs(reported - true64) <= 0.01 * true64,
+                f"{label}: ended MAX_ITERATIONS_REACHED after {res.outer_rounds} rounds, as "
+                f"the JAX package does on the CPU at n = 250-400; the best iterate's host "
+                f"residual {true64:.4e} <= ||b|| {b_norm:.4e}, reported within 1%")
+        return res, wall
+    require(res.status == smm.SolverStatus.SUCCESS, f"{label}: status {res.status_enum().name}",
+            quiet=True)
+    require(true64 <= 1.01 * eps and abs(reported - true64) <= 0.01 * true64,
+            f"{label}: host f64 residual {true64:.4e} <= {eps:.0e} (1%), reported within 1%")
+    for kname, least in checks(res).items():
+        require(added[kname] >= least, f"{label}: {added[kname]} {kname} launches >= {least}",
+                quiet=True)
+    return res, wall
+
+
+def phase_d(smm, loop, torch, dev):
+    """The double-word path at full width: K9 against its plain version, then
+    cg_df64, bicgstab_df64, cg_ir_df64 (inner solve on K2) and
+    bicgstab_ir_df64 with PaddedSGS(4) (inner K2 and K4) on the bench's
+    systems, and cg_df64 on the ELL operator of the jittered system, with
+    every launch counter at 0 just before the solves."""
+    import numpy as np
+
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
+    from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+    from sparse_matrix_math_tpu_torch.precond import PaddedSGS
+
+    print("== phase D: double-word (f64-grade float32 pairs) kernel K9/K10 and solves")
+    t_start = time.perf_counter()
+    stats = df_kernel_cases(smm, D, K, torch, dev)
+
+    t0 = time.perf_counter()
+    p64 = smm.poisson_2d(1414, device=dev)
+    p_host = host_csr_arrays(p64)
+    dfa = smm.df_operator_from_host_csr(*p_host, p64.shape, device=dev)
+    b_ones = np.add.reduceat(p_host[0], p_host[2][:-1])  # A @ ones in float64
+    cd64 = smm.convection_diffusion_2d(1414, device=dev)
+    cd_host = host_csr_arrays(cd64)
+    cdfa = smm.df_operator_from_host_csr(*cd_host, cd64.shape, device=dev)
+    x_rand = np.random.default_rng(0).standard_normal(cd64.shape[0])  # phase B's x_true
+    b_rand = np.add.reduceat(cd_host[0] * x_rand[cd_host[1]], cd_host[2][:-1])
+    cd_rowsums = np.add.reduceat(cd_host[0], cd_host[2][:-1])
+    psgs = PaddedSGS.from_dia(smm.dia_from_csr(smm.convection_diffusion_2d(
+        1414, dtype=torch.float32, device=dev)), sweeps=4)
+    jit64 = smm.laplace_3d_jittered(113, symmetric=True, shift=0.25, device=dev)
+    jit_host = host_csr_arrays(jit64)
+    dfe = smm.df_operator_from_host_csr(*jit_host, jit64.shape, device=dev)
+    b_jit = np.add.reduceat(jit_host[0], jit_host[2][:-1])
+    b_jit = b_jit / np.linalg.norm(b_jit)  # the JAX bench's right-hand side
+    require(isinstance(dfa, smm.DfDiaMatrix) and isinstance(cdfa, smm.DfDiaMatrix)
+            and isinstance(dfe, smm.DfEllMatrix),
+            "double-word operators: the stencils DIA, the jittered system ELL", quiet=True)
+    print(f"double-word operators built on the host in {time.perf_counter() - t0:.1f} s "
+          f"(ELL K={dfe.vals_hi.shape[1]})")
+
+    # -- the solves: every counter at 0 just before, read just after ----------
+    for mod in (K, T, W, E, D):
+        mod.reset_launch_counts()
+
+    def live():
+        return {k: v for mod in (K, T, W, E, D) for k, v in mod.launches.items()}
+
+    f64 = dict(epsilon=1e-8)
+    cg_res, cg_wall = df_solve(
+        smm, torch, "cg_df64 poisson_2d(1414) b=A@ones", smm.cg_df64, dfa, b_ones, p_host,
+        dict(f64, max_iterations=12000), live,
+        lambda r: {"dia_spmv_padded_df": r.iterations + 1})
+    df_solve(smm, torch, "bicgstab_df64 convection_diffusion_2d(1414) x_true normal",
+             smm.bicgstab_df64, cdfa, b_rand, cd_host, dict(f64, max_iterations=20000), live,
+             lambda r: {"dia_spmv_padded_df": 2 * r.iterations + 2})
+    df_solve(smm, torch, "cg_ir_df64 poisson_2d(1414) b=A@ones", smm.cg_ir_df64, dfa, b_ones,
+             p_host, dict(f64, max_iterations=30000), live,
+             lambda r: {"dia_spmv_padded_df": r.outer_rounds + 1,
+                        "dia_spmv_padded": r.iterations})
+    # The bench's form (b = row sums, bench.py:836-867) is held to SUCCESS
+    # only where the f32 inner BiCGStab survives its first round: with
+    # this b the JAX package on the CPU ends MAX_ITERATIONS_REACHED after one
+    # reverted round at n = 250, 300 and 400 (and the port at 200, 300 and
+    # 400); with phase B's x_true both succeed at every n tried.
+    for label, b, may_stall in (("b=rowsums (the bench's)", cd_rowsums, True),
+                                ("x_true normal", b_rand, False)):
+        df_solve(smm, torch, f"bicgstab_ir_df64+PaddedSGS(4) convection_diffusion_2d(1414) {label}",
+                 smm.bicgstab_ir_df64, cdfa, b, cd_host,
+                 dict(f64, max_iterations=30000, preconditioner=psgs), live,
+                 lambda r: {"dia_spmv_padded_df": r.outer_rounds + 1,
+                            "dia_spmv_padded": 2 * r.iterations,
+                            "sgs_apply": 2 * r.iterations}, may_stall=may_stall)
+    df_solve(smm, torch, "cg_df64 ELL laplace_3d_jittered(113)", smm.cg_df64, dfe, b_jit,
+             jit_host, dict(f64, max_iterations=600), live, lambda r: {})
+    counts = live()
+    print(f"phase D launches: {counts}")
+    for kname in ("dia_spmv_padded_df", "dia_spmv_padded", "sgs_apply"):
+        require(counts[kname] > 0, f"double-word path launched {kname} {counts[kname]} times",
+                quiet=True)
+
+    # native float64 CG on the same system, for its cost per iteration
+    b_t = torch.as_tensor(b_ones, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    native = smm.cg(p64, b_t, epsilon=1e-8, max_iterations=20000)
+    float(native.residual_norm)
+    torch.cuda.synchronize()
+    native_wall = time.perf_counter() - t0
+    print(f"cg_df64 {1e6 * cg_wall / cg_res.iterations:.1f} us/iteration ({cg_res.iterations} "
+          f"iterations) against native float64 cg {1e6 * native_wall / native.iterations:.1f} "
+          f"us/iteration ({native.status_enum().name}, {native.iterations} iterations, wall "
+          f"{native_wall:.3f} s) on "
+          f"poisson_2d(1414); phase D took {time.perf_counter() - t_start:.1f} s")
+    return stats, counts
+
+
 def phase_c(smm, torch, dev):
     """A small solve against scipy's direct solve."""
     import numpy as np
@@ -747,6 +988,7 @@ def main() -> int:
     counts, cg_f64_its = phase_b(smm, K, _loop, torch, dev)
     pcounts = phase_p(smm, K, T, _loop, torch, dev)
     wstats, wcounts = phase_w(smm, _loop, torch, dev, cg_f64_its)
+    dstats, dcounts = phase_d(smm, _loop, torch, dev)
     phase_c(smm, torch, dev)
 
     def entry(name, source, replaces, launches, st, **extra):
@@ -774,6 +1016,10 @@ def main() -> int:
               entry=f"{_WSELL_PALLAS}:207"),
         entry("wsell_kernel k=2..8 (wsell_spmm)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:165",
               wcounts["wsell_spmm"], wstats["wsell_spmm"], entry=f"{_WSELL_PALLAS}:287"),
+        entry("dia_padded_df_kernel (dia_spmv_padded_df, dia_spmv_streamed_df)", _DF_SOURCE,
+              f"{_PALLAS}:523", dcounts["dia_spmv_padded_df"], dstats,
+              also_replaces=f"{_PALLAS}:594", entry=f"{_PALLAS}:560",
+              f64_csr_ms=dstats["f64_csr_ms"]),
     ]
     print(built)
     print(smi)

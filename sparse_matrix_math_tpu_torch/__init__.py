@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of sparse_matrix_math_tpu: the DIA and general-pattern
-solve paths and their preconditioners.
+solve paths, their preconditioners, and the double-word (f64-grade from
+float32 pairs) solvers.
 
 Load or build a CSR matrix on a device, then solve with :func:`cg` or
 :func:`bicgstab`, optionally preconditioned (Jacobi, SGS, IC0, ILU0), and
@@ -9,8 +10,11 @@ renumbering to W-SELL.  The matvec of a DIA solve is the hand-written kernel
 in ``csrc/dia_spmv.cu`` and its SGS, IC0 or ILU0 apply one call of the fused
 sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, and
 each strict-factor product of its preconditioner, is ``csrc/wsell_spmv.cu``;
-an ELL matrix's is ``csrc/ell_spmv.cu``.  Public names follow the JAX
-package.
+an ELL matrix's is ``csrc/ell_spmv.cu``.  :func:`cg_df64`,
+:func:`bicgstab_df64`, :func:`cg_ir_df64` and :func:`bicgstab_ir_df64` solve
+with double-word operators (:class:`DfDiaMatrix`, :class:`DfEllMatrix`,
+:func:`load_matrix_df`); a DfDiaMatrix's product is ``csrc/dia_spmv_df.cu``.
+Public names follow the JAX package.
 """
 
 from .formats import (
@@ -35,8 +39,19 @@ from .formats import (
     try_wsell_from_csr,
     wsell_from_csr,
 )
-from .io import MatrixLoadStatus, MatrixMarketError, load_matrix_csr
-from .ops import dot, norm2, rmult, rmult_add, rmult_sub
+from .io import MatrixLoadStatus, MatrixMarketError, load_matrix_csr, load_matrix_df
+from .ops import (
+    DfDiaMatrix,
+    DfEllMatrix,
+    df_from_host,
+    df_operator_from_host_csr,
+    df_to_host,
+    dot,
+    norm2,
+    rmult,
+    rmult_add,
+    rmult_sub,
+)
 from .precond import (
     FactorizationError,
     IC0Preconditioner,
@@ -47,7 +62,18 @@ from .precond import (
     SolverPreconditioner,
     get_preconditioner,
 )
-from .solvers import SolveResult, SolverStatus, bicgstab, cg, conjugate_gradient
+from .solvers import (
+    DfSolveResult,
+    SolveResult,
+    SolverStatus,
+    bicgstab,
+    bicgstab_df64,
+    bicgstab_ir_df64,
+    cg,
+    cg_df64,
+    cg_ir_df64,
+    conjugate_gradient,
+)
 from .utils import (
     convection_diffusion_2d,
     laplace_1d,
@@ -65,12 +91,14 @@ __all__ = [
     "ELLMatrix", "ell_from_csr", "HYBMatrix", "hyb_from_csr", "WSellMatrix", "wsell_from_csr",
     "try_wsell_from_csr", "ReorderedMatrix", "permute_csr", "rcm_permutation",
     "reorder_to_wsell",
-    "MatrixLoadStatus", "MatrixMarketError", "load_matrix_csr",
+    "MatrixLoadStatus", "MatrixMarketError", "load_matrix_csr", "load_matrix_df",
     "dot", "norm2", "rmult", "rmult_add", "rmult_sub",
     "FactorizationError", "IdentityPreconditioner", "JacobiPreconditioner",
     "SGSPreconditioner", "ILU0Preconditioner", "IC0Preconditioner", "SolverPreconditioner",
     "get_preconditioner",
     "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient",
+    "DfSolveResult", "DfDiaMatrix", "DfEllMatrix", "df_from_host", "df_to_host",
+    "df_operator_from_host_csr", "cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64",
     "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",
     "poisson_3d", "poisson_3d_27pt", "random_spd_csr", "uniform_random_csr",
 ]

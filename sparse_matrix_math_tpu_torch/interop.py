@@ -16,6 +16,7 @@ from .formats.ell import ELLMatrix
 from .formats.hyb import HYBMatrix
 from .formats.reorder import ReorderedMatrix
 from .formats.wsell import WSellMatrix, slab_pointers
+from .ops.df32 import DfDiaMatrix, DfEllMatrix
 from .precond.preconditioners import (
     IC0Preconditioner,
     ILU0Preconditioner,
@@ -26,7 +27,8 @@ from .precond.trisolve import TriangularMatrix
 
 __all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy", "triangular_from_numpy",
            "sgs_from_numpy", "ic0_from_numpy", "ilu0_from_numpy", "wsell_from_numpy",
-           "ell_from_numpy", "hyb_from_numpy", "reordered_from_numpy"]
+           "ell_from_numpy", "hyb_from_numpy", "reordered_from_numpy", "df_dia_from_numpy",
+           "df_ell_from_numpy"]
 
 
 def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
@@ -99,6 +101,21 @@ def reordered_from_numpy(inner, inner_csr, perm, iperm, shape, nnz) -> Reordered
         perm=torch.tensor(np.asarray(perm, dtype=np.int64), device=device),
         iperm=torch.tensor(np.asarray(iperm, dtype=np.int64), device=device),
         shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
+def df_dia_from_numpy(diags_hi, diags_lo, offsets, shape, nnz, device) -> DfDiaMatrix:
+    """A :class:`DfDiaMatrix` from its (ndiags, rows) hi and lo planes."""
+    hi, lo = (dia_from_numpy(d, offsets, shape, nnz, device).diags for d in (diags_hi, diags_lo))
+    return DfDiaMatrix(diags_hi=hi, diags_lo=lo, offsets=tuple(int(o) for o in offsets),
+                       shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
+def df_ell_from_numpy(vals_hi, vals_lo, cols, shape, nnz, device) -> DfEllMatrix:
+    """A :class:`DfEllMatrix` from its ``(rows_padded, K)`` hi, lo and column
+    planes."""
+    hi, lo = (ell_from_numpy(v, cols, shape, nnz, device) for v in (vals_hi, vals_lo))
+    return DfEllMatrix(vals_hi=hi.vals, vals_lo=lo.vals, cols=hi.cols,
+                       shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
 
 
 def jacobi_from_numpy(inv_diag, device) -> JacobiPreconditioner:

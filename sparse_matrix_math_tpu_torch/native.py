@@ -1,9 +1,9 @@
 """ctypes binding of the host runtime's IC(0) and ILU(0) factorizations.
 
 Port of ``sparse_matrix_math_tpu/native/__init__.py:34-131, 193-246``.  The
-C++ source is the JAX package's ``native/smm_native.cpp``, reached by its
-path in the checkout: it is neither copied nor imported through the JAX
-package (whose import pulls in jax).  It is compiled at first use with the
+C++ source is this package's ``csrc/smm_native.cpp``, a verbatim copy of the
+JAX package's ``native/smm_native.cpp`` (the CPU tests hold its factors and
+W-SELL planes to the JAX package's).  It is compiled at first use with the
 JAX package's flags (``g++ -O3 -march=native -std=c++17 -shared -fPIC``,
 plus ``-fopenmp`` when that compiles) into this package's ``build/``
 directory under a name that hashes the source and the flags.  Bound:
@@ -32,7 +32,7 @@ __all__ = ["available", "library", "ic0_factorize", "ilu0_factorize", "wsell_pla
            "wsell_emit", "wsell_color", "SOURCE"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG.parent / "sparse_matrix_math_tpu" / "native" / "smm_native.cpp"
+SOURCE = _PKG / "csrc" / "smm_native.cpp"
 _BUILD_DIR = _PKG / "build"
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 

@@ -5,7 +5,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Kernel and plain version round every product and sum alike in the same
-order, so they are compared for equality.
+order, so they are compared for equality (both words of the double-word
+kernel too).
 """
 
 import numpy as np
@@ -14,10 +15,12 @@ import torch
 
 import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
 from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
 from sparse_matrix_math_tpu_torch.ops import trisweep as T
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 from sparse_matrix_math_tpu_torch.precond import PaddedSGS, PaddedTriPair
+from sparse_matrix_math_tpu_torch.solvers.ir_df64 import hi_operator
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +289,101 @@ def test_general_solves_match_cpu(cuda_device, kind):
     assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
     assert abs(gpu.iterations - cpu.iterations) <= 2
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
+
+
+# -- the double-word DIA kernel: K9 (and K10, the same kernel) --------------------
+
+
+def _df_dia(name, args, device):
+    """A double-word DIA operator whose values are not exact in float32, so
+    the lo planes are not zero."""
+    csr = getattr(smm, name)(*args, dtype=torch.float64, device="cpu")
+    data = csr.data.numpy() * (1.0 + 1e-9 * np.arange(csr.nnz))
+    return smm.DfDiaMatrix.from_host_csr(data, csr.indices.numpy(), csr.indptr.numpy(),
+                                         csr.shape, device=device)
+
+
+@pytest.mark.parametrize("name,args", CASES, ids=[f"{n}{a}" for n, a in CASES])
+def test_df_kernel_matches_plain(cuda_device, name, args):
+    """K9 and its K10 wrapper against the plain version: both words bit for
+    bit, guard rows exactly (0, 0), one launch each."""
+    a = _df_dia(name, args, cuda_device)
+    p = D.pad_dia_df(a)
+    x = smm.df_from_host(np.random.default_rng(0).standard_normal(a.shape[1]),
+                         device=cuda_device)
+    xh, xl = p.to_padded(x[0]), p.to_padded(x[1])
+    before = D.launches["dia_spmv_padded_df"]
+    outs = [D.dia_spmv_padded_df(p, xh, xl), D.dia_spmv_streamed_df(p, xh, xl)]
+    torch.cuda.synchronize()
+    assert D.launches["dia_spmv_padded_df"] == before + 2
+    ref = D.dia_spmv_padded_df_plain(p.hi.diags_p, p.lo.diags_p, p.offsets, p.lead, a.shape[0],
+                                     xh, xl)
+    for y in outs:
+        for word, want in zip(y, ref):
+            assert torch.equal(word, want)
+            assert torch.all(word[:p.lead] == 0) and torch.all(word[p.lead + a.shape[0]:] == 0)
+
+
+def test_df_kernel_random_values(cuda_device):
+    """Random float64 diagonals and x over six orders of magnitude."""
+    rng = np.random.default_rng(4)
+    n, offsets = 5000, (-130, -1, 0, 3, 257)
+    diags = rng.standard_normal((len(offsets), n)) * 10.0 ** rng.integers(-3, 3, (len(offsets), n))
+    hi, lo = smm.df_from_host(diags, device=cuda_device)
+    a = smm.DfDiaMatrix(diags_hi=hi, diags_lo=lo, offsets=offsets, shape=(n, n), nnz=0)
+    p = D.pad_dia_df(a)
+    x = smm.df_from_host(rng.standard_normal(n) * 10.0 ** rng.integers(-3, 3, n),
+                         device=cuda_device)
+    xh, xl = p.to_padded(x[0]), p.to_padded(x[1])
+    yh, yl = D.dia_spmv_padded_df(p, xh, xl)
+    rh, rl = D.dia_spmv_padded_df_plain(p.hi.diags_p, p.lo.diags_p, offsets, p.lead, n, xh, xl)
+    assert torch.equal(yh, rh) and torch.equal(yl, rl)
+
+
+def test_df_wrapper_raises_on_cuda(cuda_device):
+    a = _df_dia("poisson_2d", (7,), cuda_device)
+    p = D.pad_dia_df(a)
+    xh = torch.zeros(p.n_total, device=cuda_device)
+    with pytest.raises(TypeError):
+        D.dia_spmv_padded_df(p, xh.double(), xh.double())
+    with pytest.raises(ValueError):
+        D.dia_spmv_padded_df(p, xh.cpu(), xh.cpu())
+
+
+@pytest.mark.parametrize("solver", ["cg_df64", "bicgstab_df64", "cg_ir_df64",
+                                    "bicgstab_ir_df64"])
+def test_df_solves_match_cpu(cuda_device, solver):
+    """The double-word solves on the card (K9 matvec; K2 and K4 in the
+    refinement's inner solve) against the CPU (plain versions): the same
+    status and rounds, iteration counts within 2 (within 5% for the f32
+    inner solves, whose dots sum in other orders), x within 1e-10."""
+    name = "poisson_2d" if solver.startswith("cg") else "convection_diffusion_2d"
+    x_true = np.random.default_rng(5).standard_normal(24 * 24)
+    res, launched = {}, {}
+    for dev in ("cpu", cuda_device):
+        a = _df_dia(name, (24,), dev)
+        csr = getattr(smm, name)(24, dtype=torch.float64, device="cpu")
+        b = (csr @ torch.from_numpy(x_true)).numpy()
+        kw = {}
+        if solver == "bicgstab_ir_df64":
+            kw["preconditioner"] = PaddedSGS.from_dia(hi_operator(a), sweeps=4)
+        before = {**D.launches, **K.launches, **T.launches}
+        res[str(dev)] = getattr(smm, solver)(a, b, epsilon=1e-10, **kw)
+        after = {**D.launches, **K.launches, **T.launches}
+        launched[str(dev)] = {k: after[k] - before[k] for k in after}
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+    assert gpu.outer_rounds == cpu.outer_rounds
+    slack = 2 if cpu.outer_rounds is None else max(2, 0.05 * cpu.iterations)
+    assert abs(gpu.iterations - cpu.iterations) <= slack
+    x_gpu, x_cpu = gpu.x_f64(), cpu.x_f64()
+    assert np.linalg.norm(x_gpu - x_cpu) <= 1e-10 * np.linalg.norm(x_cpu)
+    n = launched[str(cuda_device)]
+    assert all(v == 0 for v in launched["cpu"].values())
+    if cpu.outer_rounds is None:
+        assert n["dia_spmv_padded_df"] >= gpu.iterations
+    else:
+        assert n["dia_spmv_padded_df"] >= gpu.outer_rounds
+        assert n["dia_spmv_padded"] >= gpu.iterations
+        if solver == "bicgstab_ir_df64":
+            assert n["sgs_apply"] >= 2 * gpu.iterations

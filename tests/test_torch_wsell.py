@@ -4,8 +4,8 @@
   (``vals``, ``meta``, ``base``, ``slab``) bit for bit, and the same
   ``slot_ratio``, nway auto-bail and refusal, for nway 1/2/4/8, window_f 1
   and 8, empty rows and slabs, a rectangular matrix and duplicate-column
-  reads.  Each case runs with the native layout code (skipped when g++
-  cannot build it) and with the NumPy colouring in both packages.
+  reads.  Each case runs with the native layout code (skipped only when
+  g++ is missing) and with the NumPy colouring in both packages.
 * Products: the plain versions of K7 (``wsell_spmv``), K8 (``wsell_spmm``)
   and K6 (``ell_spmv``), on the JAX planes carried over by ``interop``,
   against the Pallas kernels in interpret mode.  Both sum in the kernel's
@@ -15,6 +15,9 @@
 On the CPU the wrappers run the plain versions; the CUDA kernels are checked
 by tests/test_torch_cuda_kernels.py on a card.
 """
+
+import shutil
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -70,16 +73,26 @@ def assert_close(got, want, dtype):
     np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=REL[dtype] * scale)
 
 
+def jax_native_loaded(tries: int = 5) -> bool:
+    """Whether the JAX package's native library is loaded, retrying its
+    load.  A JAX process whose first build raced another process's loses the
+    library: the winner's build step deletes the other processes' temporary
+    files, and a failed load is never retried.  The library exists once the
+    winner's build is done, so a fresh load then finds it."""
+    for attempt in range(tries):
+        if jax_native.available():
+            return True
+        jax_native._tried = False
+        time.sleep(0.2 * (attempt + 1))
+    return jax_native.available()
+
+
 @pytest.fixture(autouse=True, scope="module")
 def same_layout_code():
-    """Both packages build W-SELL planes with the same code.  A JAX process
-    whose first native build raced another process's loses its library (its
-    build step deletes the other processes' temporary files, and a lost
-    build is not retried): load it again once the library exists.  If it
-    still fails, the port takes the NumPy layout code too."""
-    if native.available() and not jax_native.available():
-        jax_native._tried = False
-    if native.available() == jax_native.available():
+    """Both packages build W-SELL planes with the same code (the JAX
+    library's load retried, :func:`jax_native_loaded`).  If it still fails,
+    the port takes the NumPy layout code too."""
+    if native.available() == jax_native_loaded():
         yield
         return
     with pytest.MonkeyPatch.context() as mp:
@@ -92,8 +105,10 @@ def same_layout_code():
 def layout_code(request, monkeypatch):
     """Both packages build with the native layout code, or both with NumPy."""
     if request.param == "native":
-        if not native.available() or not jax_native.available():
+        if shutil.which("g++") is None:
             pytest.skip("the native layout code needs g++ to build smm_native.cpp")
+        assert native.available() and jax_native_loaded(), (
+            "g++ is present but a native layout library did not build or load")
     else:
         for name in ("wsell_plan", "wsell_color", "wsell_emit"):
             monkeypatch.setattr(native, name, lambda *a, **k: None)
