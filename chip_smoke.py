@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DIA, general-pattern and double-word solve paths
-once on one CUDA card.
+"""Drive the PyTorch port's DIA, general-pattern, double-word and routed solve
+paths and its front door once on one CUDA card.
 
     python3 chip_smoke.py
 
 It builds the hand-written kernels (``csrc/dia_spmv.cu``, ``csrc/trisweep.cu``,
-``csrc/wsell_spmv.cu``, ``csrc/ell_spmv.cu``, ``csrc/dia_spmv_df.cu``) with
-nvcc, one process per source, and the native factorizations and W-SELL layout
-routines (``csrc/smm_native.cpp``) with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
+``csrc/wsell_spmv.cu``, ``csrc/ell_spmv.cu``, ``csrc/dia_spmv_df.cu``,
+``csrc/stream_gather.cu``) with nvcc, one process per source, and the native
+factorizations and W-SELL / R-SELL layout routines (``csrc/smm_native.cpp``)
+with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
 PyTorch version on the card, in f32 and f64, at the systems the solve paths
 meet (up to the 243^3 Poisson system, 14.3M rows and 100M nnz), with
 timings: the DIA SpMV kernels, then the fused SGS (K4) and IC(0)/ILU(0) (K5)
@@ -30,7 +31,17 @@ kernel K9/K10 against its plain version, both words bit for bit, on
 ``cg_df64``, ``bicgstab_df64``, ``cg_ir_df64`` and ``bicgstab_ir_df64`` with
 ``PaddedSGS(4)`` on the bench's systems and ``cg_df64`` on the jittered
 system's ELL operator, each held to 1e-8 by a float64 host residual, with
-the launch counters reset just before the solves.  Phase C solves a small
+the launch counters reset just before the solves.  Phase R does both for the
+front door and the routed path: the JAX bench's zero-locality system
+(``uniform_random_csr(2_000_000, per_row=5)``, 12M nnz) laid out as the routed
+R-SELL chain, the stream-gather kernel K11 against its plain version on every
+routing pass in f32 and f64, the whole chain (K11 per pass, then K7) beside
+the port's CSR product and ``torch.sparse_csr_tensor``, then
+``solve(csr, b, method="bicgstab", auto_format=True)`` in f32 and f64, which
+must go through a ``RoutedMatrix``; ``solve(..., auto_format=True)`` on
+``poisson_2d(1414)``, which must go through the matrix-free grid stencil, and
+its pre-route to the double-word refinement at eps 1e-8 on f32 data; and
+``bicg_symmetric`` and ``cgs`` on the padded path.  Phase C solves a small
 system and compares the solution with scipy's direct solve.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
@@ -58,6 +69,8 @@ _WSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_wsell.py"
 _WSELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/wsell_spmv.cu"
 _ELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/ell_spmv.cu"
 _DF_SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv_df.cu"
+_RSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_rsell.py"
+_STREAM_SOURCE = "sparse_matrix_math_tpu_torch/csrc/stream_gather.cu"
 # the card's memory rate, for each kernel's bound: bytes / rate (H100 SXM
 # data sheet; the kernels here are bound by bytes, not operations)
 _HBM_BYTES_PER_S = 3.35e12
@@ -314,7 +327,7 @@ def solve_and_check(smm, loop, torch, dev, label, solver, csr, x_true, kw, launc
     launched at least ``per_iteration`` times per iteration in the timed
     run.  ``x_true`` None means ones.  With ``may_diverge`` a DIVERGED
     status passes when the returned best iterate cut the residual 1000-fold.
-    Returns the result."""
+    Returns the result and the warm run's wall seconds."""
     op = smm.auto_route_for_solve(csr)
     require(isinstance(op, smm.DIAMatrix), f"{label}: CSR auto-routed to DIA")
     x_true = (torch.ones(csr.shape[0], dtype=csr.dtype, device=dev) if x_true is None
@@ -362,7 +375,7 @@ def solve_and_check(smm, loop, torch, dev, label, solver, csr, x_true, kw, launc
             f"(float64 one {true64:.6e}, {100 * (reported - true64) / true64:+.2f}%)")
     require(launched >= per_iteration * its,
             f"{label}: {launched} {kname} launches >= {per_iteration} x {its} iterations")
-    return res
+    return res, walls[1]
 
 
 def phase_b(smm, K, loop, torch, dev):
@@ -393,14 +406,15 @@ def phase_b(smm, K, loop, torch, dev):
         ("bicgstab convection_diffusion_2d(1414) f64", smm.bicgstab, cd64, x_rand,
          dict(epsilon=1e-8, max_iterations=20000)),
     ]
-    iterations = {}
+    solved = {}
     for label, solver, csr, x_true, kw in solves:
-        iterations[label] = solve_and_check(smm, loop, torch, dev, label, solver, csr, x_true,
-                                            kw, K.launches, "dia_spmv_padded", 1).iterations
+        res, wall = solve_and_check(smm, loop, torch, dev, label, solver, csr, x_true, kw,
+                                    K.launches, "dia_spmv_padded", 1)
+        solved[label] = (res.iterations, wall)
     counts = dict(K.launches)
     for kname, n in counts.items():
         require(n > 0, f"main path launched {kname} {n} times")
-    return counts, iterations["cg poisson_2d(1414) f64"]
+    return counts, solved
 
 
 
@@ -468,7 +482,7 @@ def phase_p(smm, K, T, loop, torch, dev):
         # plain one
         bicg = solver is smm.bicgstab
         precond = plain_precond(T, pre, smm.auto_route_for_solve(csr)) if bicg else None
-        results[label] = solve_and_check(
+        results[label], _ = solve_and_check(
             smm, loop, torch, dev, label, solver, csr, x_true, dict(kw, preconditioner=pre),
             T.launches, kname, 2 if bicg else 1, precond, may_diverge)
     via_sgs, direct = (results[f"bicgstab+{k}(4) poisson_2d(1414) f32"] for k in ("sgs", "PaddedSGS"))
@@ -922,6 +936,365 @@ def phase_d(smm, loop, torch, dev):
     return stats, counts
 
 
+def stream_bytes(p, table_len: int, itemsize: int) -> int:
+    """K11's bytes model for one routing pass: each slot's value, meta word
+    and output, the bases and the table once."""
+    return p.n_vregs * (1024 * (2 * itemsize + 4) + 4) + table_len * itemsize
+
+
+class record_best_format:
+    """While active, ``formats.best_format`` and the layout constructors it tries
+    print their host seconds and what they returned; ``chosen`` holds the
+    operators ``best_format`` handed back.  Everything passes through."""
+
+    stages = ("try_wsell_from_csr", "reorder_to_wsell", "try_routed_from_csr", "best_format")
+
+    def __init__(self, formats, torch):
+        self.formats, self.torch, self.chosen, self.saved = formats, torch, [], {}
+
+    def __enter__(self):
+        for name in self.stages:
+            self.saved[name] = fn = getattr(self.formats, name)
+
+            def timed(*args, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                self.torch.cuda.synchronize()
+                ratio = getattr(getattr(out, "inner", out), "slot_ratio", None)
+                print(f"    {_name}: {type(out).__name__} in {time.perf_counter() - t0:.1f} s"
+                      + ("" if ratio is None else f", slot_ratio {ratio:.3f}"))
+                if _name == "best_format":
+                    self.chosen.append(out)
+                return out
+
+            setattr(self.formats, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.formats, name, fn)
+
+
+def phase_r(smm, loop, torch, dev, dia_solves):
+    """The front door and the routed path at full width: the JAX bench's
+    zero-locality system (bench.py:756-806) as an R-SELL chain, K11 against its
+    plain version on every pass, the chain beside the CSR products, then
+    ``solve(..., auto_format=True)`` through a RoutedMatrix (f32, f64) and
+    through the grid stencil, the pre-route to the double-word refinement,
+    and BiCGSymmetric and CGS on the padded path, with every launch counter
+    at 0 just before the solves.  ``dia_solves`` maps phase B's labels to
+    (iterations, warm wall seconds), None to run those two CG solves here."""
+    import numpy as np
+
+    import sparse_matrix_math_tpu_torch.formats as formats
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
+    from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import stream_gather as R
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+
+    print("== phase R: the front door, the routed chain (K11, then K7) and the grid stencil")
+    t_start = time.perf_counter()
+    n = 2_000_000  # the JAX bench's size for the routed case
+    t0 = time.perf_counter()
+    csr = {dt: smm.uniform_random_csr(n, per_row=5, dtype=dt, device=dev)
+           for dt in (torch.float32, torch.float64)}
+    c32 = csr[torch.float32]
+    t1 = time.perf_counter()
+    ra32 = smm.routed_from_csr(c32, max_slot_ratio=16.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    print(f"uniform_random_csr({n}, per_row=5): nnz={c32.nnz}, two matrices in {t1 - t0:.1f} s; "
+          f"routed_from_csr f32 on the host in {build_s:.1f} s: {len(ra32.passes)} routing "
+          f"passes of {[p.n_vregs for p in ra32.passes]} vregs (window_f "
+          f"{ra32.passes[0].window_f}), final W-SELL {ra32.final.n_vregs} vregs nway "
+          f"{ra32.final.nway}, slot_ratio {ra32.slot_ratio:.3f} slots per nonzero")
+
+    # -- the front door first: its f64 chain also serves the kernel checks ----
+    for mod in (K, T, W, E, D, R):
+        mod.reset_launch_counts()
+    x_true = np.random.default_rng(0).standard_normal(n)  # phase B's form
+    solved, per_solve = {}, {}
+    with record_best_format(formats, torch) as spy:
+        for dt, eps in ((torch.float32, 1e-4), (torch.float64, 1e-8)):
+            name = str(dt)[6:]
+            a = csr[dt]
+            ab = a @ torch.as_tensor(x_true, device=dev).to(dt)
+            # unit norm, as the JAX bench's general-pattern solve: with the
+            # raw b (norm ~9e3) eps 1e-4 lies below eps_f32 * ||b|| and
+            # solve() pre-routes the f32 request to the double-word refinement
+            b = ab / torch.linalg.norm(ab)
+            label = f"solve(bicgstab, auto_format=True) uniform_random({n}) {name}"
+            print(f"{label}: best_format on the host")
+            before = {k: dict(m.launches) for k, m in (("R", R), ("W", W))}
+            syncs0 = loop.host_syncs["count"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = smm.solve(a, b, method="bicgstab", auto_format=True, epsilon=eps,
+                            max_iterations=2000)
+            float(res.residual_norm)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            op = spy.chosen[-1]
+            require(isinstance(op, smm.RoutedMatrix) and isinstance(res, smm.SolveResult),
+                    f"{label}: best_format refused W-SELL and RCM + W-SELL and returned a "
+                    f"RoutedMatrix; the solve returned a SolveResult")
+            k11 = R.launches["stream_gather"] - before["R"]["stream_gather"]
+            k7 = W.launches["wsell_spmv"] - before["W"]["wsell_spmv"]
+            # the solve itself, warm: the operator is the one best_format built
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm = smm.solve(op, b, method="bicgstab", epsilon=eps, max_iterations=2000)
+            float(warm.residual_norm)
+            torch.cuda.synchronize()
+            warm_wall = time.perf_counter() - t0
+            # K11 and K7 of each counted solve: passes x matvecs and matvecs
+            per_solve[f"bicgstab {name}"] = {"passes": len(op.passes), "stream_gather": k11,
+                                             "wsell_spmv": k7}
+            per_solve[f"bicgstab {name}, warm repeat"] = {
+                "passes": len(op.passes),
+                "stream_gather": R.launches["stream_gather"] - before["R"]["stream_gather"] - k11,
+                "wsell_spmv": W.launches["wsell_spmv"] - before["W"]["wsell_spmv"] - k7}
+            true64, same = host_residuals(a, b, res.x)
+            ref = true64 if dt == torch.float64 else same
+            reported, its = float(res.residual_norm), res.iterations
+            print(f"{label}: {res.status_enum().name} iterations={its} residual_norm="
+                  f"{reported:.6e} host f64 {true64:.6e} same-precision {same:.6e}; wall with "
+                  f"the layout build {wall:.1f} s, warm solve {warm_wall:.4f} s "
+                  f"({1e6 * warm_wall / max(warm.iterations, 1):.1f} us/iteration, "
+                  f"{warm.iterations} iterations), {loop.host_syncs['count'] - syncs0} host "
+                  f"syncs, launches K11 {k11}, K7 {k7}")
+            require(res.status == smm.SolverStatus.SUCCESS and reported <= eps
+                    and abs(reported - ref) <= 0.01 * ref,
+                    f"{label}: SUCCESS, residual_norm {reported:.4e} <= {eps:.0e} and within "
+                    f"1% of the host residual {ref:.4e}")
+            require(tuple(res.x.shape) == (n,) and bool(torch.isfinite(res.x).all()),
+                    f"{label}: x finite, shape {tuple(res.x.shape)}", quiet=True)
+            require(k7 >= 2 * its + 2 and k11 == len(op.passes) * k7,
+                    f"{label}: K7 launched {k7} times (>= 2 x {its} iterations + 2), K11 "
+                    f"{k11} = {len(op.passes)} passes x {k7} matvecs")
+            solved[dt] = op
+            del ab, b, res, warm
+    # read before the comparison launches below, which do not count
+    routed_counts = {**R.launches, "wsell_spmv": W.launches["wsell_spmv"]}
+    for kname in ("stream_gather", "wsell_spmv"):
+        require(routed_counts[kname] == sum(c[kname] for c in per_solve.values()),
+                f"{kname}: the count of the front-door solves is the sum of its solves'",
+                quiet=True)
+    op32, op64 = solved[torch.float32], solved[torch.float64]
+    same_planes = len(op32.passes) == len(ra32.passes) and all(
+        torch.equal(getattr(p, f), getattr(q, f)) for p, q in zip(op32.passes, ra32.passes)
+        for f in ("vals", "meta", "base")) and all(
+        torch.equal(getattr(op32.final, f), getattr(ra32.final, f))
+        for f in ("vals", "meta", "base", "slab"))
+    require(same_planes, "best_format's f32 chain has the planes of routed_from_csr(csr, "
+                         "max_slot_ratio=16.0), the bench's build")
+    del op32, solved
+
+    # -- K11 against its plain version on every pass, f32 and f64 -------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stats = {"err": 0.0}
+    chains = {}
+    for dt, ra in ((torch.float32, ra32), (torch.float64, op64)):
+        name = str(dt)[6:]
+        x = (torch.rand(n, generator=gen, device=dev, dtype=torch.float64) - 0.5).to(dt)
+        t = x
+        passes_ms, nbytes_all = [], 0
+        for i, p in enumerate(ra.passes):
+            kw = dict(x_rows=p.x_rows, window_f=p.window_f)
+            before = R.launches["stream_gather"]
+            out = R.stream_gather(p.base, p.meta, p.vals, t, **kw)
+            ref = R.stream_gather_plain(p.base, p.meta, p.vals, t, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            require(R.launches["stream_gather"] == before + 1,
+                    f"K11 pass {i} {name}: launch counter rose", quiet=True)
+            require(out.shape == (p.out_len,) and bool(torch.isfinite(out).all())
+                    and torch.equal(out, ref),
+                    f"K11 pass {i} {name}: {p.out_len} finite slots equal the plain version "
+                    f"(max abs err {err:.3e})", quiet=True)
+            del ref
+            ms = median_ms(lambda: R.stream_gather(p.base, p.meta, p.vals, t, **kw))
+            plain_ms = median_ms(lambda: R.stream_gather_plain(p.base, p.meta, p.vals, t, **kw),
+                                 samples=3, calls=2)
+            nbytes = stream_bytes(p, t.shape[0], t.element_size())
+            b_ms = bound_ms(nbytes)
+            print(f"  K11 pass {i} {name}: {p.n_vregs} vregs from a table of {t.shape[0]}: err "
+                  f"0, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{100 * b_ms / ms:.0f}% of the {b_ms:.4f} ms bound), plain {plain_ms:.3f} ms")
+            stats["err"] = max(stats["err"], err)
+            passes_ms.append(ms)
+            nbytes_all += nbytes
+            if dt == torch.float32 and b_ms > stats.get("bound_ms", 0.0):
+                stats.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)  # the largest pass
+            t = out
+        # the final W-SELL pass over the routed stream, and the whole chain
+        # against the float64 product on the host and the port's CSR rmult
+        fin = ra.final
+        y_fin = W.wsell_spmv(fin, t)
+        require(torch.equal(y_fin, W.wsell_spmv_plain(fin, t)),
+                f"K7 over the routed stream {name} (table of {t.shape[0]} for "
+                f"{fin.shape[1]} columns, {fin.n_slabs} slabs): equals its plain version",
+                quiet=True)
+        final_ms = median_ms(lambda: W.wsell_spmv(fin, t))
+        y = ra @ x
+        require(torch.equal(y, y_fin), f"rmult(RoutedMatrix) {name} is the chain", quiet=True)
+        import scipy.sparse as sp
+
+        a = csr[dt]
+        host = sp.csr_matrix((a.data.cpu().numpy().astype(np.float64), a.indices.cpu().numpy(),
+                              a.indptr.cpu().numpy()), shape=a.shape)
+        y64 = host @ x.cpu().numpy().astype(np.float64)
+        scale = float(np.abs(y64).max())
+        rel_host = float(np.abs(y.cpu().numpy().astype(np.float64) - y64).max()) / scale
+        rel_csr = ((y - a @ x).abs().max().item()) / scale
+        tol = 1e-5 if dt == torch.float32 else 1e-13
+        require(rel_host <= tol and rel_csr <= tol,
+                f"routed product {name}: within {rel_host:.2e} of the host float64 CSR product "
+                f"and {rel_csr:.2e} of the port's CSR rmult (of max|y|, bound {tol:.0e})")
+        fin_bytes = wsell_bytes(fin, 1, t.element_size())
+        print(f"  K7 final pass {name}: {final_ms:.4f} ms "
+              f"({100 * bound_ms(fin_bytes) / final_ms:.0f}% of its {bound_ms(fin_bytes):.4f} ms "
+              f"bound); chain bytes {nbytes_all + fin_bytes}")
+        chains[dt] = (passes_ms, final_ms, bound_ms(nbytes_all + fin_bytes))
+        del t, out, y, y_fin, x
+    del op64
+    torch.cuda.empty_cache()
+
+    # -- the bench's own form: the product in a loop, x = ones, f32 ------------
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    lib = library_csr(torch, c32.data, c32.indices, c32.indptr, c32.shape)
+    chain_ms = median_ms(lambda: ra32 @ ones)
+    csr_ms = median_ms(lambda: c32 @ ones)
+    lib_ms = median_ms(lambda: lib @ ones)
+    passes_ms, final_ms, chain_bound = chains[torch.float32]
+    stats.update(library_ms=lib_ms, passes_ms=passes_ms, final_ms=final_ms, chain_ms=chain_ms,
+                 chain_bound_ms=chain_bound, csr_ms=csr_ms, launches_per_solve=per_solve)
+    print(f"routed product f32, x = ones: chain {chain_ms:.4f} ms "
+          f"({c32.nnz / chain_ms / 1e6:.2f} GNNZ/s; passes {sum(passes_ms):.4f} ms + final K7 "
+          f"{final_ms:.4f} ms; {100 * chain_bound / chain_ms:.0f}% of the chain's "
+          f"{chain_bound:.4f} ms bound), the port's CSR rmult {csr_ms:.4f} ms "
+          f"({c32.nnz / csr_ms / 1e6:.2f} GNNZ/s), torch.sparse_csr_tensor @ x {lib_ms:.4f} ms "
+          f"({c32.nnz / lib_ms / 1e6:.2f} GNNZ/s); build {build_s:.1f} s, slot_ratio "
+          f"{ra32.slot_ratio:.3f}, {len(ra32.passes)} passes")
+    del lib, ra32, ones
+    torch.cuda.empty_cache()
+
+    # -- CG through a routed chain: the symmetric part (A + A^T)/2, f32 --------
+    # (diagonal 6 against a symmetrized off-diagonal part of spectral radius
+    # near 5: positive definite, though not every row is diagonally dominant)
+    t0 = time.perf_counter()
+    r_h, c_h = c32.row_ids.cpu().numpy(), c32.indices.cpu().numpy()
+    v_h = c32.data.cpu().numpy() * np.float32(0.5)
+    sym = smm.csr_from_coo(smm.coo_from_arrays(
+        np.concatenate([r_h, c_h]), np.concatenate([c_h, r_h]), np.concatenate([v_h, v_h]),
+        (n, n), device=dev))
+    t1 = time.perf_counter()
+    ra_sym = smm.routed_from_csr(sym, max_slot_ratio=16.0)
+    print(f"(A + A^T)/2: nnz={sym.nnz}, assembled on the host in {t1 - t0:.1f} s, routed in "
+          f"{time.perf_counter() - t1:.1f} s: {len(ra_sym.passes)} passes, slot_ratio "
+          f"{ra_sym.slot_ratio:.3f}")
+    ab = sym @ torch.as_tensor(x_true, device=dev).to(torch.float32)
+    general_solve(smm, loop, torch, f"cg routed (A + A^T)/2 uniform_random({n}) f32", smm.cg,
+                  ra_sym, ab / torch.linalg.norm(ab), sym, dict(epsilon=1e-4, max_iterations=2000),
+                  R.launches, "stream_gather", len(ra_sym.passes))
+    del r_h, c_h, v_h, sym, ra_sym, ab, csr, c32
+    torch.cuda.empty_cache()
+
+    # -- the grid-stencil route and the pre-route ------------------------------
+    def front_door(label, a, b, expect, **kw):
+        with record_best_format(formats, torch) as spy:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = smm.solve(a, b, auto_format=True, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        require(isinstance(spy.chosen[-1], expect), f"{label}: best_format returned a "
+                f"{expect.__name__}", quiet=True)
+        return res, wall, spy.chosen[-1]
+
+    p32 = smm.poisson_2d(1414, dtype=torch.float32, device=dev)
+    p64 = smm.poisson_2d(1414, dtype=torch.float64, device=dev)
+    b32 = p32 @ torch.ones(p32.shape[0], dtype=torch.float32, device=dev)
+    b64 = p64 @ torch.ones(p64.shape[0], dtype=torch.float64, device=dev)
+    if dia_solves is None:  # phase R alone: phase B's two CG solves, warm
+        dia_solves = {}
+        for name, a, b, kw in (("f32", p32, b32, dict(epsilon=1e-4, max_iterations=6000)),
+                               ("f64", p64, b64, dict(epsilon=1e-8, max_iterations=20000))):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = smm.cg(a, b, **kw)
+                float(ref.residual_norm)
+                torch.cuda.synchronize()
+                dia_solves[f"cg poisson_2d(1414) {name}"] = (ref.iterations,
+                                                             time.perf_counter() - t0)
+    for label, a, b, kw, dia_label in (
+            ("stencil cg poisson_2d(1414) f32", p32, b32,
+             dict(epsilon=1e-4, max_iterations=6000, auto_escalate=False),
+             "cg poisson_2d(1414) f32"),
+            ("stencil cg poisson_2d(1414) f64", p64, b64,
+             dict(epsilon=1e-8, max_iterations=20000), "cg poisson_2d(1414) f64")):
+        k2 = K.launches["dia_spmv_padded"]
+        res, wall, st = front_door(label, a, b, smm.GridStencilMatrix, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = smm.solve(st, b, **kw)
+        float(warm.residual_norm)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        true64, same = host_residuals(a, b, res.x)
+        f64 = b.dtype == torch.float64
+        ref = true64 if f64 else same
+        reported, its = float(res.residual_norm), res.iterations
+        dia_its, dia_wall = dia_solves[dia_label]
+        print(f"{label}: {res.status_enum().name} iterations={its} floor_hit={res.floor_hit} "
+              f"residual_norm={reported:.6e} host f64 {true64:.6e} same-precision {same:.6e}; "
+              f"wall with detection {wall:.3f} s, warm {warm_wall:.4f} s, "
+              f"{1e6 * warm_wall / max(warm.iterations, 1):.1f} us/iteration against "
+              f"{1e6 * dia_wall / max(dia_its, 1):.1f} for the DIA padded path (phase B, "
+              f"{dia_its} iterations)")
+        ok = res.status == smm.SolverStatus.SUCCESS or (
+            not f64 and res.status == smm.SolverStatus.MAX_ITERATIONS_REACHED and res.floor_hit)
+        require(ok and isinstance(res, smm.SolveResult) and abs(reported - ref) <= 0.01 * ref,
+                f"{label}: status {res.status_enum().name} (floor_hit={res.floor_hit}), "
+                f"residual_norm within 1% of the host residual")
+        # an f32 solve ends at its floor after a number of verified restarts
+        # that moves with the summation order
+        band = max(2, int(0.01 * dia_its)) if f64 else int(0.25 * dia_its)
+        require(abs(its - dia_its) <= band and K.launches["dia_spmv_padded"] == k2,
+                f"{label}: {its} iterations within {band} of the DIA path's {dia_its}, no DIA "
+                f"kernel launched")
+    k9, k2 = D.launches["dia_spmv_padded_df"], K.launches["dia_spmv_padded"]
+    res, wall, _ = front_door("pre-route poisson_2d(1414) f32 eps 1e-8", p32, b32,
+                              smm.GridStencilMatrix, epsilon=1e-8, max_iterations=30000)
+    require(isinstance(res, smm.DfSolveResult) and res.status == smm.SolverStatus.SUCCESS,
+            "solve(f32 data, epsilon=1e-8, auto_format=True) pre-routes to the double-word "
+            f"refinement: {res!r}", quiet=True)
+    data, indices, indptr = host_csr_arrays(p64)
+    true64 = float(np.linalg.norm(b64.cpu().numpy() - np.add.reduceat(
+        data * res.x_f64()[indices], indptr[:-1])))
+    print(f"pre-route poisson_2d(1414) f32 eps 1e-8: {res!r} in {res.outer_rounds} rounds, host "
+          f"f64 residual {true64:.4e}; wall {wall:.2f} s; launches K9 "
+          f"{D.launches['dia_spmv_padded_df'] - k9}, K2 {K.launches['dia_spmv_padded'] - k2}")
+    require(true64 <= 1e-8 and D.launches["dia_spmv_padded_df"] > k9,
+            f"pre-route: host float64 residual {true64:.4e} <= 1e-8 through K9 and K2")
+
+    # -- BiCGSymmetric and CGS on the padded path (K2) -------------------------
+    for solver in (smm.bicg_symmetric, smm.cgs):
+        general_solve(smm, loop, torch, f"{solver.__name__} poisson_2d(1414) f64", solver, p64,
+                      b64, p64, dict(epsilon=1e-8, max_iterations=20000), K.launches,
+                      "dia_spmv_padded", 1 if solver is smm.bicg_symmetric else 2,
+                      route=smm.DIAMatrix)
+    counts = {**routed_counts, "dia_spmv_padded": K.launches["dia_spmv_padded"]}
+    print(f"phase R launches: {counts}; phase R took {time.perf_counter() - t_start:.1f} s")
+    for kname in ("stream_gather", "wsell_spmv", "dia_spmv_padded"):
+        require(counts[kname] > 0, f"front door launched {kname} {counts[kname]} times",
+                quiet=True)
+    return stats, counts
+
+
 def phase_c(smm, torch, dev):
     """A small solve against scipy's direct solve."""
     import numpy as np
@@ -985,10 +1358,12 @@ def main() -> int:
     require(native.available(), "native factorization and W-SELL layout library built and loaded")
 
     stats = phase_a(smm, K, torch, dev)
-    counts, cg_f64_its = phase_b(smm, K, _loop, torch, dev)
+    counts, dia_solves = phase_b(smm, K, _loop, torch, dev)
+    cg_f64_its = dia_solves["cg poisson_2d(1414) f64"][0]
     pcounts = phase_p(smm, K, T, _loop, torch, dev)
     wstats, wcounts = phase_w(smm, _loop, torch, dev, cg_f64_its)
     dstats, dcounts = phase_d(smm, _loop, torch, dev)
+    rstats, rcounts = phase_r(smm, _loop, torch, dev, dia_solves)
     phase_c(smm, torch, dev)
 
     def entry(name, source, replaces, launches, st, **extra):
@@ -1013,13 +1388,24 @@ def main() -> int:
               wstats["ell_spmv"], entry=f"{_PALLAS}:405"),
         entry("wsell_kernel k=1 (wsell_spmv)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:89",
               wcounts["wsell_spmv"], wstats["wsell_spmv"], also_replaces=f"{_WSELL_PALLAS}:119",
-              entry=f"{_WSELL_PALLAS}:207"),
+              entry=f"{_WSELL_PALLAS}:207", routed_chain_launches=rcounts["wsell_spmv"]),
         entry("wsell_kernel k=2..8 (wsell_spmm)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:165",
               wcounts["wsell_spmm"], wstats["wsell_spmm"], entry=f"{_WSELL_PALLAS}:287"),
         entry("dia_padded_df_kernel (dia_spmv_padded_df, dia_spmv_streamed_df)", _DF_SOURCE,
               f"{_PALLAS}:523", dcounts["dia_spmv_padded_df"], dstats,
               also_replaces=f"{_PALLAS}:594", entry=f"{_PALLAS}:560",
               f64_csr_ms=dstats["f64_csr_ms"]),
+        # ms, plain_ms and bound_ms are of the chain's largest routing pass;
+        # no PyTorch call computes one pass, so library_ms is the CSR product
+        # that the whole chain (every pass, then K7) computes; launches sums
+        # the front-door solves that launches_per_solve lists one by one
+        entry("stream_gather_kernel (stream_gather)", _STREAM_SOURCE, f"{_RSELL_PALLAS}:32",
+              rcounts["stream_gather"], rstats, also_replaces=f"{_RSELL_PALLAS}:47",
+              entry=f"{_RSELL_PALLAS}:89", library_of="the whole chain",
+              passes_ms=rstats["passes_ms"], final_wsell_ms=rstats["final_ms"],
+              chain_ms=rstats["chain_ms"], chain_bound_ms=rstats["chain_bound_ms"],
+              csr_rmult_ms=rstats["csr_ms"], chain_wsell_launches=rcounts["wsell_spmv"],
+              launches_per_solve=rstats["launches_per_solve"]),
     ]
     print(built)
     print(smi)

@@ -1,16 +1,20 @@
-"""PyTorch/CUDA port of sparse_matrix_math_tpu: the DIA and general-pattern
-solve paths, their preconditioners, and the double-word (f64-grade from
-float32 pairs) solvers.
+"""PyTorch/CUDA port of sparse_matrix_math_tpu: the front door, the DIA,
+grid-stencil, general-pattern and routed solve paths, their preconditioners,
+and the double-word (f64-grade from float32 pairs) solvers.
 
-Load or build a CSR matrix on a device, then solve with :func:`cg` or
-:func:`bicgstab`, optionally preconditioned (Jacobi, SGS, IC0, ILU0), and
-get a :class:`SolveResult` back.  A large CSR matrix on a CUDA device is
+Load or build a CSR matrix on a device, then call :func:`solve` (with
+``auto_format=True`` :func:`best_format` picks the layout: grid stencil, DIA,
+W-SELL, RCM + W-SELL, the routed R-SELL chain, or the CSR itself), or solve
+with :func:`cg`, :func:`bicgstab`, :func:`bicg_symmetric` or :func:`cgs`,
+optionally preconditioned (Jacobi, SGS, IC0, ILU0, Chebyshev), and get a
+:class:`SolveResult` back.  A large CSR matrix on a CUDA device is
 routed to DIA, else to W-SELL, else (with no preconditioner) through an RCM
 renumbering to W-SELL.  The matvec of a DIA solve is the hand-written kernel
 in ``csrc/dia_spmv.cu`` and its SGS, IC0 or ILU0 apply one call of the fused
 sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, and
 each strict-factor product of its preconditioner, is ``csrc/wsell_spmv.cu``;
-an ELL matrix's is ``csrc/ell_spmv.cu``.  :func:`cg_df64`,
+an ELL matrix's is ``csrc/ell_spmv.cu``; each routing pass of a
+:class:`RoutedMatrix` is ``csrc/stream_gather.cu``.  :func:`cg_df64`,
 :func:`bicgstab_df64`, :func:`cg_ir_df64` and :func:`bicgstab_ir_df64` solve
 with double-word operators (:class:`DfDiaMatrix`, :class:`DfEllMatrix`,
 :func:`load_matrix_df`); a DfDiaMatrix's product is ``csrc/dia_spmv_df.cu``.
@@ -22,11 +26,14 @@ from .formats import (
     CSRMatrix,
     DIAMatrix,
     ELLMatrix,
+    GridStencilMatrix,
     HYBMatrix,
     PerformanceWarning,
     ReorderedMatrix,
+    RoutedMatrix,
     WSellMatrix,
     auto_route_for_solve,
+    best_format,
     coo_from_arrays,
     csr_from_coo,
     dia_from_csr,
@@ -35,7 +42,10 @@ from .formats import (
     permute_csr,
     rcm_permutation,
     reorder_to_wsell,
+    routed_from_csr,
     try_dia_from_csr,
+    try_grid_stencil_from_csr,
+    try_routed_from_csr,
     try_wsell_from_csr,
     wsell_from_csr,
 )
@@ -43,6 +53,7 @@ from .io import MatrixLoadStatus, MatrixMarketError, load_matrix_csr, load_matri
 from .ops import (
     DfDiaMatrix,
     DfEllMatrix,
+    DfGridStencil,
     df_from_host,
     df_operator_from_host_csr,
     df_to_host,
@@ -52,7 +63,9 @@ from .ops import (
     rmult_add,
     rmult_sub,
 )
+from .ops.stream_gather import stream_gather
 from .precond import (
+    ChebyshevPreconditioner,
     FactorizationError,
     IC0Preconditioner,
     IdentityPreconditioner,
@@ -63,16 +76,22 @@ from .precond import (
     get_preconditioner,
 )
 from .solvers import (
+    SOLVERS,
     DfSolveResult,
+    SolverConfig,
     SolveResult,
     SolverStatus,
+    bicg_symmetric,
     bicgstab,
     bicgstab_df64,
     bicgstab_ir_df64,
     cg,
     cg_df64,
     cg_ir_df64,
+    cgs,
     conjugate_gradient,
+    conjugate_gradient_squared,
+    solve,
 )
 from .utils import (
     convection_diffusion_2d,
@@ -90,14 +109,16 @@ __all__ = [
     "coo_from_arrays", "csr_from_coo", "dia_from_csr", "try_dia_from_csr",
     "ELLMatrix", "ell_from_csr", "HYBMatrix", "hyb_from_csr", "WSellMatrix", "wsell_from_csr",
     "try_wsell_from_csr", "ReorderedMatrix", "permute_csr", "rcm_permutation",
-    "reorder_to_wsell",
+    "reorder_to_wsell", "RoutedMatrix", "routed_from_csr", "try_routed_from_csr",
+    "GridStencilMatrix", "try_grid_stencil_from_csr", "best_format", "stream_gather",
     "MatrixLoadStatus", "MatrixMarketError", "load_matrix_csr", "load_matrix_df",
     "dot", "norm2", "rmult", "rmult_add", "rmult_sub",
     "FactorizationError", "IdentityPreconditioner", "JacobiPreconditioner",
     "SGSPreconditioner", "ILU0Preconditioner", "IC0Preconditioner", "SolverPreconditioner",
-    "get_preconditioner",
-    "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient",
-    "DfSolveResult", "DfDiaMatrix", "DfEllMatrix", "df_from_host", "df_to_host",
+    "get_preconditioner", "ChebyshevPreconditioner",
+    "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient", "bicg_symmetric",
+    "cgs", "conjugate_gradient_squared", "solve", "SolverConfig", "SOLVERS",
+    "DfSolveResult", "DfDiaMatrix", "DfEllMatrix", "DfGridStencil", "df_from_host", "df_to_host",
     "df_operator_from_host_csr", "cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64",
     "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",
     "poisson_3d", "poisson_3d_27pt", "random_spd_csr", "uniform_random_csr",

@@ -324,6 +324,14 @@ def _wsell_from_coo(r: np.ndarray, c: np.ndarray, v: np.ndarray, shape: Tuple[in
     vreg_start_of_job = vreg_start[job_pos[:n_jobs]]
 
     total_rows = n_vregs_padded * 8
+    # refuse before the planes exist: a pattern far beyond the cap (one nonzero
+    # per tile) would otherwise allocate and fill hundreds of slots per nonzero
+    slot_ratio = float(total_rows * LANE / max(nnz, 1))
+    if slot_ratio > max_slot_ratio:
+        raise ValueError(
+            f"W-SELL padding too high for this pattern: {slot_ratio:.1f} "
+            f"slots/nnz (> {max_slot_ratio}); keep the CSR/ELL path"
+        )
     vals_plane = np.zeros((total_rows, LANE), dtype=v.dtype)
     # chunk-pad vregs carry zero values, base 0 and the last slab
     pad_v = n_vregs_padded - n_vregs
@@ -363,13 +371,6 @@ def _wsell_from_coo(r: np.ndarray, c: np.ndarray, v: np.ndarray, shape: Tuple[in
             shift_plane = np.zeros((total_rows, LANE), np.int32)
             shift_plane[row_global, lane_out] = shift_of
             meta = meta | (shift_plane << (_lsrc_shift(window_f) + 7)).astype(np.int32)
-
-    slot_ratio = float(total_rows * LANE / max(nnz, 1))
-    if slot_ratio > max_slot_ratio:
-        raise ValueError(
-            f"W-SELL padding too high for this pattern: {slot_ratio:.1f} "
-            f"slots/nnz (> {max_slot_ratio}); keep the CSR/ELL path"
-        )
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)

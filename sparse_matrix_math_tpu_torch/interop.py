@@ -15,6 +15,8 @@ from .formats.dia import DIAMatrix
 from .formats.ell import ELLMatrix
 from .formats.hyb import HYBMatrix
 from .formats.reorder import ReorderedMatrix
+from .formats.rsell import RoutedMatrix, StreamPass
+from .formats.stencil import GridStencilMatrix
 from .formats.wsell import WSellMatrix, slab_pointers
 from .ops.df32 import DfDiaMatrix, DfEllMatrix
 from .precond.preconditioners import (
@@ -28,7 +30,7 @@ from .precond.trisolve import TriangularMatrix
 __all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy", "triangular_from_numpy",
            "sgs_from_numpy", "ic0_from_numpy", "ilu0_from_numpy", "wsell_from_numpy",
            "ell_from_numpy", "hyb_from_numpy", "reordered_from_numpy", "df_dia_from_numpy",
-           "df_ell_from_numpy"]
+           "df_ell_from_numpy", "routed_from_numpy", "grid_stencil_from_numpy"]
 
 
 def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
@@ -101,6 +103,31 @@ def reordered_from_numpy(inner, inner_csr, perm, iperm, shape, nnz) -> Reordered
         perm=torch.tensor(np.asarray(perm, dtype=np.int64), device=device),
         iperm=torch.tensor(np.asarray(iperm, dtype=np.int64), device=device),
         shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
+
+
+def routed_from_numpy(passes, final, shape, nnz, slot_ratio, device) -> RoutedMatrix:
+    """A :class:`RoutedMatrix` from its routing passes, each a mapping with
+    the planes ``vals``, ``meta`` and ``base`` and ``x_rows`` and
+    ``window_f``, and ``final``, a mapping for :func:`wsell_from_numpy`."""
+    def stream_pass(f):
+        return StreamPass(vals=torch.tensor(np.asarray(f["vals"]), device=device),
+                          meta=torch.tensor(np.asarray(f["meta"], np.int32), device=device),
+                          base=torch.tensor(np.asarray(f["base"], np.int32), device=device),
+                          x_rows=int(f["x_rows"]), window_f=int(f["window_f"]))
+
+    return RoutedMatrix(passes=tuple(stream_pass(f) for f in passes),
+                        final=wsell_from_numpy(final, device),
+                        shape=(int(shape[0]), int(shape[1])), nnz=int(nnz),
+                        slot_ratio=float(slot_ratio))
+
+
+def grid_stencil_from_numpy(coeffs, doffs, dims, shape, nnz, device) -> GridStencilMatrix:
+    """A :class:`GridStencilMatrix` from its coefficients, grid offsets and
+    grid shape."""
+    return GridStencilMatrix(coeffs=torch.tensor(np.asarray(coeffs), device=device),
+                             doffs=tuple(tuple(int(o) for o in off) for off in doffs),
+                             dims=tuple(int(d) for d in dims),
+                             shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))
 
 
 def df_dia_from_numpy(diags_hi, diags_lo, offsets, shape, nnz, device) -> DfDiaMatrix:

@@ -1,6 +1,7 @@
-"""ctypes binding of the host runtime's IC(0) and ILU(0) factorizations.
+"""ctypes binding of the host runtime: the IC(0) and ILU(0) factorizations
+and the W-SELL and R-SELL layout routines.
 
-Port of ``sparse_matrix_math_tpu/native/__init__.py:34-131, 193-246``.  The
+Port of ``sparse_matrix_math_tpu/native/__init__.py:34-131, 150-246, 288-523``.  The
 C++ source is this package's ``csrc/smm_native.cpp``, a verbatim copy of the
 JAX package's ``native/smm_native.cpp`` (the CPU tests hold its factors and
 W-SELL planes to the JAX package's).  It is compiled at first use with the
@@ -8,12 +9,15 @@ JAX package's flags (``g++ -O3 -march=native -std=c++17 -shared -fPIC``,
 plus ``-fopenmp`` when that compiles) into this package's ``build/``
 directory under a name that hashes the source and the flags.  Bound:
 ``smm_ic0_factorize`` and ``smm_ilu0_factorize`` (native/__init__.py:193-246)
-and the W-SELL layout routines ``smm_wsell_plan``, ``smm_wsell_emit`` and
-``smm_wsell_color`` (native/__init__.py:175-185, 288-311, 462-523).
+the W-SELL layout routines ``smm_wsell_plan``, ``smm_wsell_emit`` and
+``smm_wsell_color`` (native/__init__.py:175-185, 288-311, 462-523), and the
+R-SELL routed-chain routines ``smm_stream_pack_cf``, ``smm_sort_perm``,
+``smm_stream_group``, ``smm_stream_emit`` and ``smm_stream_level``
+(native/__init__.py:150-174, 312-460).
 
 Like the JAX binding, a missing compiler or a failed build leaves the
 library unavailable: each call then returns None, and its caller falls back
-to Python (precond/_factorize.py, formats/wsell.py).
+to Python (precond/_factorize.py, formats/wsell.py, formats/rsell.py).
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from typing import Optional
 import numpy as np
 
 __all__ = ["available", "library", "ic0_factorize", "ilu0_factorize", "wsell_plan",
-           "wsell_emit", "wsell_color", "SOURCE"]
+           "wsell_emit", "wsell_color", "stream_pack_cf", "sort_perm", "stream_group",
+           "stream_emit", "stream_level", "SOURCE"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG / "csrc" / "smm_native.cpp"
@@ -38,6 +43,7 @@ _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
@@ -98,6 +104,19 @@ def library() -> Optional[ctypes.CDLL]:
         _i64p, _i64p, ctypes.c_void_p, _i64p, _i32p, _i64p, _i32p,
         ctypes.c_void_p, _i32p,
     ]
+    c64 = ctypes.c_int64
+    lib.smm_stream_pack_cf.restype = c64
+    lib.smm_stream_pack_cf.argtypes = [c64, c64, c64, _i64p, _i64p, _i64p, _i64p, _i32p,
+                                       _i32p, _i64p]
+    lib.smm_sort_perm.restype = None
+    lib.smm_sort_perm.argtypes = [c64, _u64p, ctypes.c_int, _i64p]
+    lib.smm_stream_group.restype = c64
+    lib.smm_stream_group.argtypes = [c64, c64] + [_i64p] * 6
+    lib.smm_stream_emit.restype = None
+    lib.smm_stream_emit.argtypes = [c64, c64, ctypes.c_int, _i64p, _i64p, _i32p, _i32p,
+                                    _i64p, _i64p, ctypes.c_void_p, _i32p, _i64p]
+    lib.smm_stream_level.restype = c64
+    lib.smm_stream_level.argtypes = [c64] * 8 + [_i64p] * 10
     return lib
 
 
@@ -214,3 +233,103 @@ def wsell_emit(lsrc_shift: int, wrows: int, r, c, v: np.ndarray, job, row,
     if rc != 0:
         raise AssertionError(f"window base math violated sw in [0, {wrows})")
     return True
+
+
+def stream_pack_cf(group, sigma, lam, nd, wrows: int):
+    """The closed-form R-SELL stream-pass packing, the native twin of
+    ``formats/rsell.py:_pack_pass``: (int32 row in group, int32 out lane,
+    rows per group), or None when the library is unavailable or refuses the
+    input.  Raises ValueError when a flood of duplicate sources does not
+    pack, as the NumPy packer does."""
+    lib = library()
+    if lib is None:
+        return None
+    n = group.shape[0]
+    n_groups = int(group[-1]) + 1 if n else 0
+    row = np.empty(n, np.int32)
+    lane = np.empty(n, np.int32)
+    group_rows = np.empty(max(n_groups, 1), np.int64)
+    rc = lib.smm_stream_pack_cf(n, n_groups, int(wrows), _i64(group), _i64(sigma), _i64(lam),
+                                _i64(nd), row, lane, group_rows)
+    if rc == -2:
+        raise ValueError("R-SELL packer did not converge (duplicate flood)")
+    if rc < 0:
+        return None
+    return row, lane, group_rows[:n_groups]
+
+
+def sort_perm(key: np.ndarray) -> Optional[np.ndarray]:
+    """The stable radix-sort permutation of non-negative int64 (or uint64)
+    keys, equal to ``np.argsort(key, kind="stable")``; None when the library
+    is unavailable or the keys are of another type or negative."""
+    lib = library()
+    if lib is None:
+        return None
+    key = np.ascontiguousarray(key)
+    if key.dtype == np.int64:
+        if key.size and int(key.min()) < 0:
+            return None
+        key = key.view(np.uint64)
+    elif key.dtype != np.uint64:
+        return None
+    bits = int(key.max(initial=0)).bit_length() if key.size else 1
+    perm = np.empty(key.shape[0], np.int64)
+    lib.smm_sort_perm(key.shape[0], key, max(bits, 1), perm)
+    return perm
+
+
+def stream_group(wrows: int, bucket, pos):
+    """One stream level's grouping, for inputs sorted by (bucket, pos):
+    per element (group, window sublane sigma, source lane lam), and per group
+    its window stack; None when the library is unavailable."""
+    lib = library()
+    if lib is None:
+        return None
+    n = bucket.shape[0]
+    group, sigma, lam, group_stack = (np.empty(n, np.int64) for _ in range(4))
+    n_groups = lib.smm_stream_group(n, int(wrows), _i64(bucket), _i64(pos), group, sigma, lam,
+                                    group_stack)
+    return group, sigma, lam, group_stack[:n_groups]
+
+
+def stream_emit(sw_bits: int, group, row_off, row_in_group, out_lane, lam, sigma,
+                vals_plane: np.ndarray, meta_plane: np.ndarray) -> Optional[np.ndarray]:
+    """Scatter one stream level's zeroed vals (float32 or float64) and meta
+    (int32) planes in place and return each element's new position; None when
+    the library is unavailable or the value type is another."""
+    lib = library()
+    if lib is None or vals_plane.dtype not in (np.float32, np.float64):
+        return None
+    assert vals_plane.flags["C_CONTIGUOUS"] and meta_plane.flags["C_CONTIGUOUS"]
+    out_pos = np.empty(group.shape[0], np.int64)
+    lib.smm_stream_emit(
+        group.shape[0], int(sw_bits), int(vals_plane.dtype == np.float64), _i64(group),
+        _i64(row_off), np.ascontiguousarray(row_in_group, np.int32),
+        np.ascontiguousarray(out_lane, np.int32), _i64(lam), _i64(sigma),
+        vals_plane.ctypes.data_as(ctypes.c_void_p), meta_plane, out_pos,
+    )
+    return out_pos
+
+
+def stream_level(wrows: int, d: int, wt: int, d_next: int, wt_next: int, pos_bits: int,
+                 key_bits: int, prefix: np.ndarray, pos: np.ndarray, order: np.ndarray,
+                 leaf: np.ndarray, slab_in_leaf: np.ndarray):
+    """The fused routed-chain level: ``prefix <- prefix * d + (leaf // wt) % d``,
+    a stable sort of all five carried arrays IN PLACE by (prefix, pos), then
+    the next-level digit and the grouping of the sorted order.  Returns
+    (nd, group, sigma, lam, group_stack), or None when the library is
+    unavailable, refuses, or an array is not contiguous int64."""
+    lib = library()
+    if lib is None:
+        return None
+    carried = (prefix, pos, order, leaf, slab_in_leaf)
+    if any(a.dtype != np.int64 or not a.flags["C_CONTIGUOUS"] for a in carried):
+        return None
+    n = prefix.shape[0]
+    nd, group, sigma, lam, group_stack = (np.empty(n, np.int64) for _ in range(5))
+    n_groups = lib.smm_stream_level(n, int(wrows), int(d), int(wt), int(d_next), int(wt_next),
+                                    int(pos_bits), int(key_bits), *carried, nd, group, sigma,
+                                    lam, group_stack)
+    if n_groups < 0:
+        return None
+    return nd, group, sigma, lam, group_stack[:n_groups]

@@ -25,7 +25,7 @@ __all__ = ["library", "check", "SOURCES"]
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("dia_spmv.cu", "trisweep.cu", "wsell_spmv.cu", "ell_spmv.cu",
-                 "dia_spmv_df.cu"))
+                 "dia_spmv_df.cu", "stream_gather.cu"))
 _BUILD_DIR = _PKG / "build"
 _COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -61,6 +61,9 @@ _SIGNATURES = {
     # diags_hi, diags_lo, xh, xl, yh, yl, offsets, ndiags, n_total, lead,
     # n_rows, stream
     "smm_dia_spmv_padded_df": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
+    # vals, meta, base, table, out, n_vregs, table_len, sw_bits, stream
+    "smm_stream_gather_f32": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "smm_stream_gather_f64": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
 }
 
 

@@ -15,7 +15,11 @@ double-word algorithms (Dekker 1971, Knuth TAOCP 4.2.2, Joldes-Muller-Popescu
   values split exactly into (hi, lo) planes.  The DIA product is the Hopper
   kernel K9 (``ops/dia_spmv_df.py``); the ELL product is plain PyTorch, a
   gather per slot in slot order, as the JAX package computes it in XLA
-  (df32.py:309-334) with no Pallas kernel.
+  (df32.py:309-334) with no Pallas kernel;
+* :class:`DfGridStencil` — the double-word twin of the matrix-free grid
+  stencil (formats/stencil.py): a few (hi, lo) coefficient pairs and the
+  shifted-slice pass in double-word arithmetic, plain PyTorch as the JAX
+  package's is plain XLA (df32.py:488-550).
 
 The error-free transforms need every float32 operation rounded on its own:
 no multiply contracted with an add into an FMA, no reassociation.  The JAX
@@ -28,8 +32,6 @@ sequences below are exact as written.  Never run them under
 ``torch.compile`` (it fuses, and its code generators may contract), and use
 no operation that fuses a multiply with an add (``addcmul``,
 ``add(..., alpha=)``).
-
-``DfGridStencil`` (df32.py:488-550) waits for the port's stencil format.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 __all__ = [
     "two_sum", "two_prod", "df_add", "df_sub", "df_add_f", "df_mul", "df_mul_f", "df_div",
     "df_scale_add", "df_dot", "df_dots", "df_norm2", "df_from_host", "df_to_host", "DfEllMatrix",
-    "DfDiaMatrix", "df_matvec_fn", "df_operator_from_host_csr",
+    "DfDiaMatrix", "DfGridStencil", "df_matvec_fn", "df_operator_from_host_csr",
 ]
 
 Df = Tuple[torch.Tensor, torch.Tensor]
@@ -298,11 +300,66 @@ class DfDiaMatrix:
         return df_matvec_fn(self)(x)
 
 
+@dataclasses.dataclass(frozen=True)
+class DfGridStencil:
+    """Double-word matrix-free grid stencil, the twin of
+    :class:`~..formats.stencil.GridStencilMatrix`: a few (hi, lo) scalar
+    pairs, applied by the same zero-pad and shifted-slice sum in double-word
+    arithmetic."""
+
+    coeffs_hi: torch.Tensor  # (npoints,) float32
+    coeffs_lo: torch.Tensor  # (npoints,) float32
+    doffs: Tuple[Tuple[int, ...], ...]
+    dims: Tuple[int, ...]
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.coeffs_hi.device
+
+    @classmethod
+    def from_stencil(cls, st, coeffs64=None) -> "DfGridStencil":
+        """From a GridStencilMatrix, on its device; ``coeffs64`` (host
+        float64) overrides the coefficient values.  By default the stencil's
+        own values are split exactly, so a float64 stencil keeps its
+        precision in the lo words and a float32 one gives zero lo words."""
+        c64 = np.asarray(st.coeffs.cpu().numpy() if coeffs64 is None else coeffs64, np.float64)
+        hi, lo = _split_planes(c64, st.device)
+        return cls(coeffs_hi=hi, coeffs_lo=lo, doffs=st.doffs, dims=st.dims, shape=st.shape,
+                   nnz=int(st.nnz))
+
+    def rmult_df(self, x: Df) -> Df:
+        """y = A @ x, (hi, lo) in and out: the shifted slices of
+        ``GridStencilMatrix.apply_grid`` accumulated in double-word, in the
+        stencil's point order."""
+        dims = self.dims
+        nd = len(dims)
+        lo_pad = [max(-min(o[d] for o in self.doffs), 0) for d in range(nd)]
+        hi_pad = [max(max(o[d] for o in self.doffs), 0) for d in range(nd)]
+        pad = []
+        for d in reversed(range(nd)):  # F.pad counts from the last axis
+            pad += [lo_pad[d], hi_pad[d]]
+        xph = torch.nn.functional.pad(x[0].reshape(dims), pad)
+        xpl = torch.nn.functional.pad(x[1].reshape(dims), pad)
+        y = None
+        for k, off in enumerate(self.doffs):
+            sl = tuple(slice(lo_pad[d] + off[d], lo_pad[d] + off[d] + dims[d])
+                       for d in range(nd))
+            wh, wl = xph[sl], xpl[sl]
+            c_hi, c_lo = self.coeffs_hi[k], self.coeffs_lo[k]
+            p, e = two_prod(c_hi, wh)
+            e = e + (c_hi * wl + c_lo * wh)
+            t = _fast_two_sum(p, e)
+            y = t if y is None else df_add(y, t)
+        return y[0].reshape(-1), y[1].reshape(-1)
+
+
 def df_matvec_fn(a):
     """The double-word matvec ``x_df -> A @ x_df`` of ``a``, with what it
     needs built once: for a :class:`DfDiaMatrix` the padded layout, so each
     call lifts the two words, launches K9 and drops the padding."""
-    if isinstance(a, DfEllMatrix):
+    if isinstance(a, (DfEllMatrix, DfGridStencil)):
         return a.rmult_df
     if not isinstance(a, DfDiaMatrix):
         raise TypeError(f"no double-word matvec for {type(a).__name__}")

@@ -1,6 +1,6 @@
 """SpMV family: y = op(lhs, A @ x).
 
-Port of ``sparse_matrix_math_tpu/ops/spmv.py:94-136, 156-320``, the
+Port of ``sparse_matrix_math_tpu/ops/spmv.py:94-136, 148-320``, the
 reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
 
 * CSR — gather ``x`` by column, multiply, ``index_add_`` by row.  The JAX
@@ -10,6 +10,10 @@ reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
   The JAX package runs XLA here (its Mosaic refuses the kernel's gather).
 * W-SELL — :func:`~.wsell_spmv.wsell_spmv` (K7) for a vector,
   :func:`~.wsell_spmv.wsell_spmm` (K8) for an ``(n, k)`` panel.
+* R-SELL — one :func:`~.stream_gather.stream_gather` (K11) per routing pass,
+  then K7 over the routed stream; an ``(n, k)`` panel column by column.
+* grid stencil — the matrix-free shifted-slice pass (formats/stencil.py),
+  plain torch ops as the JAX package's is plain XLA.
 * HYB — the DIA part plus the CSR remainder; a ``ReorderedMatrix`` —
   its inner operator between two permutations.
 * dense 2-D tensors — ``a @ x``; callables — ``a(x)``.
@@ -26,12 +30,16 @@ from ..formats.dia import DIAMatrix
 from ..formats.ell import ELLMatrix
 from ..formats.hyb import HYBMatrix
 from ..formats.reorder import ReorderedMatrix
+from ..formats.rsell import RoutedMatrix
+from ..formats.stencil import GridStencilMatrix
 from ..formats.wsell import WSellMatrix
 from . import dia_spmv as _dia
 from . import ell_spmv as _ell
+from . import stream_gather as _stream
 from . import wsell_spmv as _wsell
 
-_FORMATS = (CSRMatrix, DIAMatrix, ELLMatrix, HYBMatrix, WSellMatrix, ReorderedMatrix)
+_FORMATS = (CSRMatrix, DIAMatrix, ELLMatrix, HYBMatrix, WSellMatrix, ReorderedMatrix,
+            RoutedMatrix, GridStencilMatrix)
 
 __all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator"]
 
@@ -98,6 +106,25 @@ def _rmult_wsell(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.ndim == 1:
         return _wsell.wsell_spmv(a, x)
     return _wsell.wsell_spmm(a, x)
+
+
+@rmult.register
+def _rmult_routed(a: RoutedMatrix, x: torch.Tensor) -> torch.Tensor:
+    # the routing chain, one K11 launch per pass, then the final F-window
+    # W-SELL multiply-accumulate (K7) over the routed stream, whose length is
+    # the final layout's column count
+    if x.ndim != 1:
+        return torch.stack([rmult(a, x[:, j]) for j in range(x.shape[1])], dim=1)
+    a, t = _promoted(a, x)
+    for p in a.passes:
+        t = _stream.stream_gather(p.base, p.meta, p.vals, t, x_rows=p.x_rows,
+                                  window_f=p.window_f)
+    return _wsell.wsell_spmv(a.final, t)
+
+
+@rmult.register
+def _rmult_stencil(a: GridStencilMatrix, x: torch.Tensor) -> torch.Tensor:
+    return a.rmult(x)
 
 
 @rmult.register

@@ -1,4 +1,5 @@
 from ._factorize import FactorizationError
+from .cheby_poly import ChebyshevPreconditioner
 from .padded_sgs import PaddedSGS
 from .padded_tri import PaddedTriPair
 from .preconditioners import (
@@ -15,6 +16,6 @@ from .trisolve import TriangularMatrix, triangular_from_csr_arrays
 __all__ = [
     "FactorizationError", "IdentityPreconditioner", "JacobiPreconditioner",
     "SGSPreconditioner", "ILU0Preconditioner", "IC0Preconditioner", "SolverPreconditioner",
-    "get_preconditioner", "PaddedSGS", "PaddedTriPair", "TriangularMatrix",
+    "get_preconditioner", "ChebyshevPreconditioner", "PaddedSGS", "PaddedTriPair", "TriangularMatrix",
     "triangular_from_csr_arrays",
 ]

@@ -203,10 +203,10 @@ def get_preconditioner(a: CSRMatrix, kind=SolverPreconditioner.NONE, **kwargs):
     :class:`SolverPreconditioner` or one of its names or aliases."""
     if isinstance(kind, str):
         if kind.lower() in ("cheby", "chebyshev", "poly", "polynomial"):
-            raise NotImplementedError(
-                "the Chebyshev polynomial preconditioner (precond/cheby_poly.py) "
-                "is not ported yet (ROADMAP.md, Queue 1)"
-            )
+            # polynomial preconditioning: the apply is k products with A
+            from .cheby_poly import ChebyshevPreconditioner
+
+            return ChebyshevPreconditioner.from_matrix(a, **kwargs)
         aliases = {
             "none": SolverPreconditioner.NONE,
             "jacobi": SolverPreconditioner.JACOBI,

@@ -22,6 +22,7 @@ import torch
 
 from ..formats.dia import DIAMatrix
 from ..ops.dia_spmv import dia_spmv_padded, pad_dia
+from ..precond.cheby_poly import ChebyshevPreconditioner, cheby_apply_fn
 from ..precond.padded_sgs import PaddedSGS
 from ..precond.padded_tri import PaddedTriPair, strict_offsets
 from ..precond.preconditioners import (
@@ -30,19 +31,30 @@ from ..precond.preconditioners import (
     JacobiPreconditioner,
     SGSPreconditioner,
 )
+from .bicg_symmetric import bicg_symmetric_core
 from .bicgstab import bicgstab_core
 from .cg import cg_core, pcg_core
+from .cgs import cgs_core
 from .types import SolveResult
 
 __all__ = ["eligible", "padded_solve", "padded_preconditioner"]
+
+_CORES = {
+    "cg": cg_core,
+    "bicg_symmetric": bicg_symmetric_core,
+    "cgs": cgs_core,
+    # bicgstab_core's preconditioner argument is bound in padded_solve
+    "bicgstab": bicgstab_core,
+}
 
 
 def eligible(a, preconditioner=None) -> bool:
     """Take the padded path?  A DIA matrix, on any device, with no
     preconditioner, Jacobi, or one the padded layout represents: SGS, IC0
     and ILU0 whose triangular solves use ``method='jacobi'`` (the factors'
-    strict parts must lie on the matrix's diagonals), or a PaddedSGS or
-    PaddedTriPair.  ``method='dense'`` takes the generic path, as in JAX."""
+    strict parts must lie on the matrix's diagonals), a PaddedSGS or
+    PaddedTriPair, or a Chebyshev polynomial of ``a`` itself (its apply is
+    padded products).  ``method='dense'`` takes the generic path, as in JAX."""
     if not isinstance(a, DIAMatrix):
         return False
     pre = preconditioner
@@ -54,15 +66,21 @@ def eligible(a, preconditioner=None) -> bool:
         factors = (pre.lower, pre.upper)
         return all(t.method == "jacobi" for t in factors) and all(
             set(strict_offsets(t)) <= set(a.offsets) for t in factors)
+    if isinstance(pre, ChebyshevPreconditioner):
+        return pre.a is a
     return False
 
 
 def padded_solve(core_name: str, a: DIAMatrix, b: torch.Tensor, x0: torch.Tensor, eps,
                  maxiter: int, record: bool, preconditioner=None) -> SolveResult:
-    """Run ``cg`` or ``bicgstab`` in the padded layout, with a
-    preconditioner :func:`eligible` admits."""
-    if core_name not in ("cg", "bicgstab"):
+    """Run ``cg``, ``bicgstab``, ``bicg_symmetric`` or ``cgs`` in the padded
+    layout; ``cg`` and ``bicgstab`` with a preconditioner :func:`eligible`
+    admits."""
+    if core_name not in _CORES:
         raise ValueError(f"no padded solve for {core_name!r}")
+    if preconditioner is not None and core_name not in ("cg", "bicgstab"):
+        raise ValueError(f"{core_name} does not take a preconditioner")
+    cheby = preconditioner if isinstance(preconditioner, ChebyshevPreconditioner) else None
     if a.dtype != b.dtype:
         a = a.astype(b.dtype)  # b carries the harmonized solve dtype
     pdia = pad_dia(a)
@@ -73,7 +91,10 @@ def padded_solve(core_name: str, a: DIAMatrix, b: torch.Tensor, x0: torch.Tensor
     def dotfn(u, v):
         return torch.dot(u, v)
 
-    apply_ = _padded_apply(preconditioner, a, pdia)
+    if cheby is not None:
+        apply_ = cheby_apply_fn(matvec, cheby.lmin, cheby.lmax, cheby.degree)
+    else:
+        apply_ = _padded_apply(preconditioner, a, pdia)
     bp = pdia.to_padded(b)
     x0p = pdia.to_padded(x0)
     if core_name == "bicgstab":
@@ -82,7 +103,7 @@ def padded_solve(core_name: str, a: DIAMatrix, b: torch.Tensor, x0: torch.Tensor
     elif apply_ is not None:
         res = pcg_core(matvec, apply_, dotfn, bp, x0p, eps, maxiter, record)
     else:
-        res = cg_core(matvec, dotfn, bp, x0p, eps, maxiter, record)
+        res = _CORES[core_name](matvec, dotfn, bp, x0p, eps, maxiter, record)
     return dataclasses.replace(res, x=pdia.from_padded(res.x).clone())
 
 

@@ -1,0 +1,321 @@
+"""The solve front door and the solver configuration.
+
+Port of ``sparse_matrix_math_tpu/solvers/api.py``.  A :class:`SolverConfig`
+holds the whole run-time configuration (method, tolerance, iteration cap,
+preconditioner and its options, the format and escalation switches), and
+:func:`solve` dispatches to the solver and preconditioner it names: the
+one-call API for users coming from the reference's ``SolverStatus f(A, b, x,
+...)`` call sites.
+
+What :func:`solve` dispatches to in the JAX package and the port does not
+hold yet raises ``NotImplementedError`` naming its ROADMAP item: the methods
+``chebyshev``, ``cg_pipelined`` and ``gmres``, a 2-D ``b`` (``cg_multi``) and
+``preconditioner="multigrid"`` (Queue 1, the solver tail), and
+``matrix_dtype`` (``mixed_cg``; Queue 1, the precision variants).  Their names
+stay in :data:`SOLVERS`' error message, so an unknown method still raises
+``ValueError`` as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..formats.csr import CSRMatrix
+from ..precond.preconditioners import get_preconditioner
+from .bicg_symmetric import bicg_symmetric
+from .bicgstab import bicgstab
+from .cg import conjugate_gradient
+from .cgs import conjugate_gradient_squared
+from .types import SolveResult
+
+__all__ = ["SolverConfig", "solve", "SOLVERS"]
+
+SOLVERS = {
+    "cg": conjugate_gradient,
+    "conjugate_gradient": conjugate_gradient,
+    "bicg_symmetric": bicg_symmetric,
+    "cgs": conjugate_gradient_squared,
+    "conjugate_gradient_squared": conjugate_gradient_squared,
+    "bicgstab": bicgstab,
+}
+
+# methods of the JAX package's table that the port does not hold yet
+_NOT_PORTED = ("chebyshev", "cg_pipelined", "gmres")
+_SOLVER_TAIL = "ROADMAP.md, Queue 1, the solver tail"
+_PRECISION_VARIANTS = "ROADMAP.md, Queue 1, the precision variants"
+
+# double-word methods (solvers/df64.py, solvers/ir_df64.py): a branch of
+# their own in solve(), with other operator and result types (DfSolveResult)
+_DF64_METHODS = ("cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64")
+
+# which solvers take a preconditioner (the reference: CG has the IC0 overload
+# h:2414-2505, BiCGStab the preconditioned form h:2191-2283)
+_PRECONDITIONABLE = {"cg", "conjugate_gradient", "bicgstab", "gmres"}
+
+_SGS_KINDS = ("sgs", "symmetric_gauss_seidel", "symmetric_gaus_seidel")
+
+
+def _build_preconditioner(a, kind, options):
+    """Resolve a preconditioner spec for the matrix's format.
+
+    CSR takes every kind (``get_preconditioner``); DIA takes the kinds whose
+    factors the diagonal layout represents: ``'sgs'`` (PaddedSGS, the padded
+    path's apply) and ``'chebyshev'``, which any format takes.
+    """
+    from ..formats.dia import DIAMatrix
+    from ..formats.reorder import ReorderedMatrix
+
+    if hasattr(kind, "apply"):
+        # a preconditioner OBJECT passes through: anything with apply(r) -> z
+        return kind
+    if isinstance(kind, str) and kind.lower() in ("multigrid", "mg"):
+        raise NotImplementedError(
+            f"preconditioner='multigrid' (solvers/multigrid.py) is not ported yet "
+            f"({_SOLVER_TAIL})")
+    if isinstance(a, ReorderedMatrix):
+        # the hoisted solvers run in the permuted domain
+        # (formats/reorder.py:reorder_hoisted), so the preconditioner is
+        # factored from the PERMUTED matrix
+        if a.inner_csr is None:
+            raise ValueError("ReorderedMatrix carries no permuted CSR; pass a "
+                             "preconditioner object built in the permuted domain")
+        return _build_preconditioner(a.inner_csr, kind, options)
+    if isinstance(a, CSRMatrix):
+        return get_preconditioner(a, kind, **options)
+    k = kind.lower() if isinstance(kind, str) else kind
+    if k in ("cheby", "chebyshev", "poly", "polynomial"):
+        from ..precond.cheby_poly import ChebyshevPreconditioner
+
+        return ChebyshevPreconditioner.from_matrix(a, **options)
+    if isinstance(a, DIAMatrix) and k in _SGS_KINDS:
+        from ..precond.padded_sgs import PaddedSGS
+
+        opts = dict(options)
+        opts.setdefault("sweeps", 4)
+        return PaddedSGS.from_dia(a, **opts)
+    raise ValueError(
+        f"preconditioner {kind!r} is not buildable for {type(a).__name__}; construct from "
+        "CSR (get_preconditioner) or pass a preconditioner object directly")
+
+
+def _build_preconditioner_for(a, a_source, kind, options):
+    """Build for the solve operator, falling back to the CSR source.
+
+    With ``auto_format`` the operator may be a layout (W-SELL, R-SELL, grid
+    stencil) whose kinds are not directly buildable; those layouts keep the
+    row and column order, so a factor of the original CSR is exact.  A
+    ReorderedMatrix does not: ``_build_preconditioner`` factors from its
+    permuted CSR, and there is no fallback across the permutation."""
+    from ..formats.reorder import ReorderedMatrix
+
+    try:
+        return _build_preconditioner(a, kind, options)
+    except ValueError:
+        if a_source is a or isinstance(a, ReorderedMatrix):
+            raise
+        return _build_preconditioner(a_source, kind, options)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Run-time solver configuration."""
+
+    method: str = "cg"
+    epsilon: float = 1e-8
+    max_iterations: int = -1          # -1 => n, reference convention
+    # a kind string (none/jacobi/sgs/ilu0/ic0/chebyshev) or any OBJECT with
+    # apply(r) -> z; both serve the plain path AND the escalation
+    preconditioner: Any = "none"
+    preconditioner_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    record_residuals: bool = False
+    # stream the MATRIX in this dtype (e.g. "bfloat16") with f32 vectors and
+    # true-residual refinement (the JAX package's solvers/mixed.py; not
+    # ported yet)
+    matrix_dtype: Optional[str] = None
+    # convert a CSR input through formats.best_format before solving (grid
+    # stencil / DIA / W-SELL / RCM + W-SELL / R-SELL / CSR by pattern).  Off
+    # by default: a layout build costs host time that only pays over real
+    # solver runs.
+    auto_format: bool = False
+    # when a float32 solve stops at its PRECISION FLOOR (floor_hit: a
+    # verified-convergence restart could not shrink the true residual) above
+    # ``epsilon``, go on through the double-word refinement (cg_ir_df64 /
+    # bicgstab_ir_df64) from the floored iterate, which delivers the
+    # reference's f64-default accuracy contract (test/include/test_common.h:
+    # 30-38).  The escalated call returns a DfSolveResult.  Opt out to get
+    # the floored SolveResult back.
+    auto_escalate: bool = True
+
+    def replace(self, **kw) -> "SolverConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+          config: Optional[SolverConfig] = None, **overrides):
+    """Solve ``a @ x = b`` according to ``config`` and keyword overrides, on
+    the device of ``a`` and ``b``.
+
+    Returns a ``SolveResult``; a ``DfSolveResult`` for the df64 methods, or
+    when ``auto_escalate`` sends a float32 request below its precision floor
+    through the double-word refinement (see :class:`SolverConfig`).
+
+    >>> solve(a, b, method="bicgstab", preconditioner="sgs", epsilon=1e-8)
+    """
+    cfg = (config or SolverConfig()).replace(**overrides)
+    method = cfg.method.lower()
+    if method in _NOT_PORTED:
+        raise NotImplementedError(f"method {cfg.method!r} is not ported yet ({_SOLVER_TAIL})")
+    if method not in SOLVERS and method not in _DF64_METHODS:
+        raise ValueError(
+            f"unknown method {cfg.method!r}; options: "
+            f"{sorted(set(SOLVERS) | set(_NOT_PORTED) | set(_DF64_METHODS))}")
+    if method in _DF64_METHODS:
+        return _solve_df64(a, b, x0, cfg, method)
+    if getattr(b, "ndim", 1) == 2:
+        raise NotImplementedError(
+            f"a multi-RHS b (n, m) goes to cg_multi (solvers/block.py), which is not ported "
+            f"yet ({_SOLVER_TAIL}); solve each column")
+    if cfg.matrix_dtype is not None:
+        raise NotImplementedError(
+            f"matrix_dtype goes to mixed_cg (solvers/mixed.py), which is not ported yet "
+            f"({_PRECISION_VARIANTS})")
+    a_source = a  # preconditioners factor from the CSR source below
+    if cfg.auto_format and isinstance(a, CSRMatrix):
+        from ..formats import best_format
+        from ..formats.dia import try_dia_from_csr
+        from ..formats.stencil import GridStencilMatrix
+
+        a = best_format(a)
+        if isinstance(a, GridStencilMatrix) and (
+                str(cfg.preconditioner).lower() in _SGS_KINDS + ("ilu0", "ic0")):
+            # these ride the DIA machinery (PaddedSGS, the padded factor
+            # applies); the matrix-free stencil stores no factors: keep DIA
+            dia = try_dia_from_csr(a_source)
+            if dia is not None:
+                a = dia
+    kwargs: Dict[str, Any] = dict(max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                                  record_residuals=cfg.record_residuals)
+    if not _is_none(cfg.preconditioner):
+        if method not in _PRECONDITIONABLE:
+            raise ValueError(f"{method} does not take a preconditioner "
+                             "(cg, bicgstab, and gmres do)")
+        kwargs["preconditioner"] = _build_preconditioner_for(
+            a, a_source, cfg.preconditioner, cfg.preconditioner_options)
+    # an escalation returns a DfSolveResult, which has no residual trace: an
+    # explicit record_residuals request stays on the plain path
+    escalatable = cfg.auto_escalate and not cfg.record_residuals
+    if escalatable and method in _ESCALATION:
+        # pre-route: an epsilon below what the working dtype can represent
+        # relative to b (||r|| < eps_mach * ||b|| is no reachable float32
+        # state) skips the doomed n-iteration pass
+        if b.dtype.is_floating_point and torch.finfo(b.dtype).eps > 1e-10:
+            floor_est = float(torch.finfo(b.dtype).eps) * float(torch.linalg.norm(b))
+            if cfg.epsilon < floor_est:
+                esc = _escalated_solve(a_source, b, x0, cfg, method, kwargs, a)
+                if esc is not None:
+                    return esc
+    res = SOLVERS[method](a, b, x0, **kwargs)
+    if escalatable:
+        esc = _maybe_escalate(res, a_source, b, cfg, method, kwargs, a)
+        if esc is not None:
+            return esc
+    return res
+
+
+def _is_none(pre) -> bool:
+    return pre is None or (isinstance(pre, str) and pre == "none")
+
+
+def _solve_df64(a, b, x0, cfg: SolverConfig, method: str):
+    """The double-word methods: they take the CSR source (or a double-word
+    operator) directly; formats, string preconditioners and traces belong to
+    the plain path."""
+    from .df64 import bicgstab_df64, cg_df64
+    from .ir_df64 import bicgstab_ir_df64, cg_ir_df64
+
+    if cfg.record_residuals:
+        raise ValueError(f"{method} does not record residual traces")
+    if method in ("cg_ir_df64", "bicgstab_ir_df64"):
+        # the refinement's inner f32 solve takes a preconditioner OBJECT
+        pre = cfg.preconditioner
+        if _is_none(pre):
+            pre = None
+        elif isinstance(pre, str):
+            raise ValueError(
+                f"{method} via solve() takes a preconditioner OBJECT (apply(r) -> z), not a "
+                f"string factory name; call {method}() directly or pass the object")
+        ir_fn = cg_ir_df64 if method == "cg_ir_df64" else bicgstab_ir_df64
+        return ir_fn(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                     preconditioner=pre)
+    if not _is_none(cfg.preconditioner):
+        raise ValueError(f"{method} does not take a preconditioner yet")
+    fn = cg_df64 if method == "cg_df64" else bicgstab_df64
+    return fn(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon)
+
+
+# the methods that report floor_hit, and the double-word refinement each
+# escalates to.  The JAX table also sends "gmres" to "bicgstab" (pre-route
+# only); it joins when gmres is ported.
+_ESCALATION = {
+    "cg": "cg",
+    "conjugate_gradient": "cg",
+    "bicgstab": "bicgstab",
+}
+
+
+def _escalated_solve(a_source, b, x0, cfg, method, kwargs, a_solve=None):
+    """Run the double-word refinement (pre-routed, or after a floored f32
+    pass).  None when the operator has no double-word twin: the caller then
+    keeps the plain behaviour."""
+    from ..formats.reorder import ReorderedMatrix
+    from .ir_df64 import bicgstab_ir_df64, cg_ir_df64
+
+    dfa = _df_operator_for(a_source)
+    if dfa is None:
+        return None
+    ir_fn = cg_ir_df64 if _ESCALATION[method] == "cg" else bicgstab_ir_df64
+    pre = kwargs.get("preconditioner")
+    if pre is not None and not hasattr(pre, "apply"):
+        pre = None
+    if pre is not None and isinstance(a_solve, ReorderedMatrix):
+        # auto_format factored the preconditioner in the PERMUTED domain; the
+        # refinement runs on the original-order operator: escalate without it
+        pre = None
+    return ir_fn(dfa, b, x0=x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                 preconditioner=pre)
+
+
+def _maybe_escalate(res, a_source, b, cfg, method, kwargs, a_solve=None):
+    """Escalate a float32 solve that stopped at its precision floor above the
+    requested ``epsilon`` to the double-word refinement, from the floored
+    iterate.  None when escalation does not apply."""
+    if method not in _ESCALATION or not isinstance(res, SolveResult):
+        return None
+    if not res.floor_hit:
+        return None
+    if not float(res.residual_norm) > float(cfg.epsilon):
+        return None
+    return _escalated_solve(a_source, b, res.x, cfg, method, kwargs, a_solve)
+
+
+def _df_operator_for(a):
+    """The double-word operator of the solve's source matrix, or None when
+    the format has no double-word twin.  Float32 values mean zero lo planes:
+    the refinement then solves the f32-rounded operator to ``epsilon``."""
+    from ..formats.dia import DIAMatrix
+    from ..formats.stencil import GridStencilMatrix
+    from ..ops.df32 import DfDiaMatrix, DfEllMatrix, DfGridStencil, df_from_host
+    from .df64 import _as_df_operator
+
+    if isinstance(a, (CSRMatrix, GridStencilMatrix)):
+        return _as_df_operator(a)
+    if isinstance(a, DIAMatrix):
+        hi, lo = df_from_host(a.diags, device=a.device)
+        return DfDiaMatrix(diags_hi=hi, diags_lo=lo, offsets=a.offsets, shape=a.shape,
+                           nnz=a.nnz)
+    if isinstance(a, (DfDiaMatrix, DfEllMatrix, DfGridStencil)):
+        return a
+    return None

@@ -53,13 +53,16 @@ def bicgstab(
     record_residuals: bool = False,
 ) -> SolveResult:
     """Solve ``a @ x = b`` (``a`` may be nonsymmetric or indefinite)."""
-    from . import _padded
+    from . import _padded, _stencil
 
     a = as_operator(a)
     b, x0 = harmonize_dtypes(a, b, x0)
     if x0 is None:
         x0 = torch.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, b.shape[0])
+    if _stencil.eligible(a, preconditioner):
+        return _stencil.stencil_solve("bicgstab", a, b, x0, epsilon, maxiter,
+                                      record_residuals, preconditioner=preconditioner)
     if _padded.eligible(a, preconditioner):
         return _padded.padded_solve("bicgstab", a, b, x0, epsilon, maxiter,
                                     record_residuals, preconditioner=preconditioner)

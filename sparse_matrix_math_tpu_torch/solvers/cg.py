@@ -48,7 +48,8 @@ def conjugate_gradient(
     """Solve ``a @ x = b`` for SPD ``a``.
 
     Args:
-      a: CSR or DIA matrix, dense 2-D tensor, or matvec callable.
+      a: a sparse matrix of the port's formats, a dense 2-D tensor, or a matvec
+        callable.
       b: right-hand side, on the device the solve runs on.
       x0: initial guess (zeros when None).
       max_iterations: -1 means n (reference convention, h:2345-2347).
@@ -56,13 +57,16 @@ def conjugate_gradient(
       preconditioner: object with ``apply(r) -> z`` (SPD), or None.
       record_residuals: also return the per-iteration ||r|| trace.
     """
-    from . import _padded
+    from . import _padded, _stencil
 
     a = as_operator(a)
     b, x0 = harmonize_dtypes(a, b, x0)
     if x0 is None:
         x0 = torch.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, b.shape[0])
+    if _stencil.eligible(a, preconditioner):
+        return _stencil.stencil_solve("cg", a, b, x0, epsilon, maxiter, record_residuals,
+                                      preconditioner=preconditioner)
     if _padded.eligible(a, preconditioner):
         return _padded.padded_solve("cg", a, b, x0, epsilon, maxiter, record_residuals,
                                     preconditioner=preconditioner)

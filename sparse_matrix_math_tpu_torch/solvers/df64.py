@@ -25,9 +25,11 @@ import numpy as np
 import torch
 
 from ..formats.csr import CSRMatrix
+from ..formats.stencil import GridStencilMatrix
 from ..ops.df32 import (
     DfDiaMatrix,
     DfEllMatrix,
+    DfGridStencil,
     df_div,
     df_dot,
     df_dots,
@@ -87,17 +89,20 @@ class DfSolveResult:
 
 
 def _as_df_operator(a):
-    """A double-word operator as it is, or one built from a CSR matrix on
-    its device: a float64 CSR keeps its values to 2^-48, a float32 one gives
+    """A double-word operator as it is, or one built from a CSR matrix or a
+    grid stencil on its device: float64 values keep 2^-48, float32 ones give
     zero lo planes (an f32-accurate operator, a double-word recurrence)."""
-    if isinstance(a, (DfEllMatrix, DfDiaMatrix)):
+    if isinstance(a, (DfEllMatrix, DfDiaMatrix, DfGridStencil)):
         return a
+    if isinstance(a, GridStencilMatrix):
+        return DfGridStencil.from_stencil(a)
     if isinstance(a, CSRMatrix):
         return df_operator_from_host_csr(a.data.cpu().numpy(), a.indices.cpu().numpy(),
                                          a.indptr.cpu().numpy(), a.shape, device=a.device)
     raise TypeError(
-        "a double-word solve needs a DfDiaMatrix/DfEllMatrix (load_matrix_df / "
-        "df_operator_from_host_csr) or a CSRMatrix; got " + type(a).__name__
+        "a double-word solve needs a DfDiaMatrix/DfEllMatrix/DfGridStencil "
+        "(load_matrix_df / df_operator_from_host_csr), a CSRMatrix or a "
+        "GridStencilMatrix; got " + type(a).__name__
     )
 
 

@@ -25,8 +25,9 @@ The JAX package nests both loops as ``lax.while_loop``s inside one jit.
 Here both are host-driven: the outer round on the host, one host read per
 round; the inner solve in chunks of iterations, a finished iteration frozen
 by ``torch.where`` (solvers/_loop.py).  The retry after a Mosaic refusal
-(:459-475) exists only on the TPU and is not ported; the grid-stencil
-branches (:67-74, 218-228) wait for the port's stencil format.
+(:459-475) exists only on the TPU and is not ported.  With a grid-stencil
+inner operator and no preconditioner or Jacobi, the inner solve keeps its
+carries in the grid layout (:218-228), as ``solvers/_stencil.py`` does.
 """
 
 from __future__ import annotations
@@ -38,7 +39,16 @@ import torch
 
 from ..formats.dia import DIAMatrix
 from ..formats.ell import ELLMatrix
-from ..ops.df32 import DfDiaMatrix, DfEllMatrix, df_matvec_fn, df_norm2, df_scale_add, df_sub
+from ..formats.stencil import GridStencilMatrix
+from ..ops.df32 import (
+    DfDiaMatrix,
+    DfEllMatrix,
+    DfGridStencil,
+    df_matvec_fn,
+    df_norm2,
+    df_scale_add,
+    df_sub,
+)
 from ..ops.dia_spmv import dia_spmv_padded, pad_dia
 from ..ops.spmv import matvec_fn
 from ..precond.padded_sgs import PaddedSGS
@@ -54,6 +64,9 @@ def hi_operator(a_df):
     """The float32 (hi-plane) operator of a double-word matrix: the inner
     solves run on it, and the outer double-word residual corrects its
     2^-24 rounding."""
+    if isinstance(a_df, DfGridStencil):
+        return GridStencilMatrix(coeffs=a_df.coeffs_hi, doffs=a_df.doffs, dims=a_df.dims,
+                                 shape=a_df.shape, nnz=a_df.nnz)
     if isinstance(a_df, DfDiaMatrix):
         return DIAMatrix(diags=a_df.diags_hi, offsets=a_df.offsets, shape=a_df.shape,
                          nnz=a_df.nnz)
@@ -218,9 +231,17 @@ def _ir_front(inner_kind, a, b, x0, max_iterations, epsilon, preconditioner, inn
         # solve runs on them too
         pre_kind, pdia = "obj", None
 
+    dotfn = torch.dot
     if pdia is not None:
         matvec = lambda v: dia_spmv_padded(pdia, v)  # noqa: E731
         lift, drop = pdia.to_padded, pdia.from_padded
+    elif isinstance(a_in, GridStencilMatrix) and pre_kind in ("none", "jacobi"):
+        # grid-resident inner solve; a preconditioner object applies to flat
+        # vectors, so it stays on the generic branch below
+        a_grid = a_in if a_in.dtype == torch.float32 else a_in.astype(torch.float32)
+        matvec = a_grid.apply_grid
+        lift, drop = a_grid.to_grid, a_grid.from_grid
+        dotfn = lambda u, v: torch.sum(u * v)  # noqa: E731
     else:
         matvec = matvec_fn(a_in)
         lift = drop = lambda v: v  # noqa: E731
@@ -245,7 +266,7 @@ def _ir_front(inner_kind, a, b, x0, max_iterations, epsilon, preconditioner, inn
         return r, df_norm2(r)[0]
 
     x_hi, x_lo, rn2, total, outer, status = ir_df_core(
-        true_residual, matvec, apply_, torch.dot, lift, drop, b, x0, eps2, rho2, maxiter,
+        true_residual, matvec, apply_, dotfn, lift, drop, b, x0, eps2, rho2, maxiter,
         int(max_outer), inner_kind, int(round_cap))
     return DfSolveResult(x_hi=x_hi, x_lo=x_lo, status=int(status), iterations=total,
                          residual_norm2=rn2, outer_rounds=outer)

@@ -12,11 +12,13 @@ kernel too).
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
 from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
 from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+from sparse_matrix_math_tpu_torch.ops import stream_gather as R
 from sparse_matrix_math_tpu_torch.ops import trisweep as T
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 from sparse_matrix_math_tpu_torch.precond import PaddedSGS, PaddedTriPair
@@ -387,3 +389,86 @@ def test_df_solves_match_cpu(cuda_device, solver):
         assert n["dia_spmv_padded"] >= gpu.iterations
         if solver == "bicgstab_ir_df64":
             assert n["sgs_apply"] >= 2 * gpu.iterations
+
+
+# -- the stream gather of the routed chain: K11 -------------------------------------
+
+ROUTED_CASES = [
+    ("uniform", dict(n=20_000, per_row=5), {}),
+    ("uniform_three_passes", dict(n=8_000, per_row=5), dict(window_f=4, leaf_slabs=1,
+                                                             _digits=(2, 2, 2))),
+    ("uniform_wf8", dict(n=8_000, per_row=5), dict(window_f=8)),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name,gen,kw", ROUTED_CASES, ids=[c[0] for c in ROUTED_CASES])
+def test_stream_gather_matches_plain(cuda_device, name, gen, kw, dtype):
+    csr = smm.uniform_random_csr(gen["n"], per_row=gen["per_row"], dtype=dtype,
+                                 device=cuda_device)
+    ra = smm.routed_from_csr(csr, max_slot_ratio=999.0, **kw)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(csr.shape[1]),
+                        device=cuda_device).to(dtype)
+    t = x
+    for p in ra.passes:
+        before = R.launches["stream_gather"]
+        out = R.stream_gather(p.base, p.meta, p.vals, t, x_rows=p.x_rows, window_f=p.window_f)
+        torch.cuda.synchronize()
+        assert R.launches["stream_gather"] == before + 1
+        assert out.shape == (p.out_len,)
+        assert torch.equal(out, R.stream_gather_plain(p.base, p.meta, p.vals, t,
+                                                      x_rows=p.x_rows, window_f=p.window_f))
+        t = out
+    n11, n7 = R.launches["stream_gather"], W.launches["wsell_spmv"]
+    y = ra @ x
+    torch.cuda.synchronize()
+    assert R.launches["stream_gather"] == n11 + len(ra.passes)
+    assert W.launches["wsell_spmv"] == n7 + 1
+    assert torch.equal(y, W.wsell_spmv_plain(ra.final, t))
+    ref = csr @ x
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    assert (y - ref).abs().max() <= tol * ref.abs().max()
+
+
+def test_stream_gather_wrapper_raises_on_cuda(cuda_device):
+    csr = smm.uniform_random_csr(4_000, per_row=4, dtype=torch.float32, device=cuda_device)
+    p = smm.routed_from_csr(csr, max_slot_ratio=999.0).passes[0]
+    x = torch.ones(csr.shape[1], device=cuda_device)
+    kw = dict(x_rows=p.x_rows, window_f=p.window_f)
+    with pytest.raises(TypeError):
+        R.stream_gather(p.base, p.meta, p.vals, x.double(), **kw)
+    with pytest.raises(ValueError):
+        R.stream_gather(p.base, p.meta, p.vals, x.cpu(), **kw)
+    # a table shorter than x_rows * 128 reads zeros past its end
+    padded = torch.zeros(p.x_rows * 128, device=cuda_device)
+    padded[:x.shape[0]] = x
+    assert torch.equal(R.stream_gather(p.base, p.meta, p.vals, x, **kw),
+                       R.stream_gather(p.base, p.meta, p.vals, padded, **kw))
+    # no vreg, no launch: the counter stays
+    before = R.launches["stream_gather"]
+    empty = R.stream_gather(p.base[:0], p.meta[:0], p.vals[:0], x, **kw)
+    assert empty.shape == (0,) and R.launches["stream_gather"] == before
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "cgs", "bicg_symmetric", "cg"])
+def test_front_door_solves_match_cpu(cuda_device, method):
+    """solve(auto_format=True) on the card (kernels) against the CPU (plain
+    versions), f64: the same layout, the same status, iteration counts within
+    3 (the dots sum in other orders), x within 1e-6."""
+    res = {}
+    for dev in ("cpu", cuda_device):
+        if method in ("bicgstab", "cgs"):
+            csr = smm.uniform_random_csr(20_000, per_row=5, device=dev)
+            expect = smm.RoutedMatrix
+        else:
+            csr = smm.poisson_2d(40, device=dev)
+            expect = smm.GridStencilMatrix
+        assert isinstance(smm.best_format(csr), expect)
+        x_true = torch.as_tensor(np.random.default_rng(3).standard_normal(csr.shape[0]),
+                                 device=dev)
+        res[str(dev)] = smm.solve(csr, csr @ x_true, method=method, auto_format=True,
+                                  epsilon=1e-9)
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+    assert abs(gpu.iterations - cpu.iterations) <= 3
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 from sparse_matrix_math_tpu.io.dispatch import load_matrix_df as jax_load_matrix_df
 from sparse_matrix_math_tpu.ops import df32 as JD

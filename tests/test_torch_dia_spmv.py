@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 from sparse_matrix_math_tpu.formats.dia import dia_from_csr as jax_dia_from_csr
 from sparse_matrix_math_tpu.ops import pallas_spmv as jax_pallas

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 import sparse_matrix_math_tpu as jsmm
 import sparse_matrix_math_tpu_torch as smm
@@ -367,7 +368,9 @@ def test_factory_kinds_and_aliases():
         jkind = kind.value if isinstance(kind, smm.SolverPreconditioner) else kind
         assert type(jsmm.get_preconditioner(jcsr, jkind)).__name__ == cls.__name__
     for kind in ("cheby", "chebyshev", "poly", "polynomial"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            smm.get_preconditioner(tcsr, kind)
+        pre = smm.get_preconditioner(tcsr, kind, eig_bounds=(0.1, 8.0))
+        assert isinstance(pre, smm.ChebyshevPreconditioner) and pre.a is tcsr
+        jpre = jsmm.get_preconditioner(jcsr, kind, eig_bounds=(0.1, 8.0))
+        assert (pre.lmin, pre.lmax, pre.degree) == (jpre.lmin, jpre.lmax, jpre.degree)
     with pytest.raises(KeyError):
         smm.get_preconditioner(tcsr, "ssor")

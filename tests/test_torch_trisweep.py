@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 import sparse_matrix_math_tpu as jsmm
 from sparse_matrix_math_tpu.formats.dia import DIAMatrix as JaxDIAMatrix

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 import sparse_matrix_math_tpu.native as jax_native
 from sparse_matrix_math_tpu.formats.csr import csr_from_dense as jax_csr_from_dense
