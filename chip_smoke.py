@@ -5,7 +5,7 @@ paths and its front door once on one CUDA card.
     python3 chip_smoke.py
 
 It builds the hand-written kernels (``csrc/dia_spmv.cu``, ``csrc/trisweep.cu``,
-``csrc/wsell_spmv.cu``, ``csrc/ell_spmv.cu``, ``csrc/dia_spmv_df.cu``,
+``csrc/wsell_spmv.cu``, ``csrc/sell_spmv.cu``, ``csrc/dia_spmv_df.cu``,
 ``csrc/stream_gather.cu``) with nvcc, one process per source, and the native
 factorizations and W-SELL / R-SELL layout routines (``csrc/smm_native.cpp``)
 with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
@@ -22,9 +22,12 @@ every apply one launch of K4 or K5.  Phase W does both for the
 general-pattern path: the JAX bench's unstructured system
 (``laplace_3d_jittered(113)``, 17.5M nnz) routed to W-SELL, its IC(0)
 strict factors in W-SELL, a shuffled ``poisson_2d(1414)`` routed through
-RCM to W-SELL, and ELL: kernels K6 (ELL), K7 and K8 (W-SELL) against their
-plain versions beside the ``torch.sparse_csr_tensor`` product, then the
-solves with the counters reset just before them.  Phase D does both for the
+RCM to W-SELL, and ELL: kernels K6 (ELL) and K7 (W-SELL, one column), one
+kernel over the slab-sorted SELL-32 layout derived with each matrix, and K8
+(W-SELL planes, 2-8 columns) against their plain versions beside the
+``torch.sparse_csr_tensor`` product, with the layout's bound, the planes'
+bound, slots per nonzero and the layout's derivation time, then the solves
+with the counters reset just before them.  Phase D does both for the
 double-word path (values as pairs of float32, hi + lo): the double-word DIA
 kernel K9/K10 against its plain version, both words bit for bit, on
 ``poisson_2d(1414)``, ``poisson_3d(243)`` and ``poisson_3d_27pt(128)``, then
@@ -67,7 +70,7 @@ _TRI_PALLAS = "sparse_matrix_math_tpu/ops/pallas_trisweep.py"
 _TRI_SOURCE = "sparse_matrix_math_tpu_torch/csrc/trisweep.cu"
 _WSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_wsell.py"
 _WSELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/wsell_spmv.cu"
-_ELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/ell_spmv.cu"
+_SELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/sell_spmv.cu"
 _DF_SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv_df.cu"
 _RSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_rsell.py"
 _STREAM_SOURCE = "sparse_matrix_math_tpu_torch/csrc/stream_gather.cu"
@@ -502,31 +505,88 @@ def wsell_bytes(ws, k: int, itemsize: int, per_vreg: int = 8) -> int:
 
 
 def ell_bytes(ell, itemsize: int) -> int:
-    """K6's bytes model: each slot's value and int32 column, x and y once."""
+    """The ELL planes' bytes model (what a kernel over the planes reads):
+    each slot's value and int32 column, x and y once."""
     return ell.rows_padded * ell.slots * (itemsize + 4) + sum(ell.shape) * itemsize
 
 
-def kernel_case(torch, stats, key, label, kern, plain, lib, nbytes, n_rows, counter, calls=20):
+def sell_bytes(s, itemsize: int, padded: bool = False) -> int:
+    """K6's and K7's bytes model over the slab-sorted SELL-32 layout: each
+    stored entry's value and column word, the chunk pointers and the row map
+    once, x and y once.  ``padded`` counts every slot of the layout, its
+    padding too: what the kernel reads, where the function needs the entries."""
+    entries = s.n_slots if padded else s.nnz
+    return (entries * (itemsize + 4) + s.chunk_ptr.numel() * 8 + s.row_of.numel() * 2
+            + sum(s.shape) * itemsize)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit for bit, the sign of a zero included."""
+    word = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a.view(word),
+                                                                          b.view(word)))
+
+
+def sell_layout_info(smm, torch, a, planes_bytes: int) -> dict:
+    """What the slab-sorted SELL-32 layout of an ELL or W-SELL matrix costs:
+    slots per nonzero beside the planes' ratio, the bytes it adds on the
+    device, the bytes the kernel reads over it (padding slots included), the
+    planes' bound, and the seconds its derivation takes on the
+    card (derived again here from the planes, where a padding slot is told
+    from a stored zero by rule; ``same_as_built`` says whether that gives the
+    layout the builder made)."""
+    from sparse_matrix_math_tpu_torch.formats import sell as S
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if isinstance(a, smm.ELLMatrix):
+        again = S.sell_from_ell(a.vals, a.cols, a.shape, a.nnz)
+        ratio = a.rows_padded * a.slots / max(a.nnz, 1)
+    else:
+        again = S.sell_from_wsell(a.vals, a.meta, a.base, a.slab, a.shape, a.nnz,
+                                  max(3, (8 * a.window_f - 1).bit_length()), a.nway)
+        ratio = a.slot_ratio
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    same = all(bool(torch.equal(getattr(again, f), getattr(a.sell, f)))
+               for f in ("vals", "cols", "chunk_ptr", "row_of"))
+    return {"slots_per_nonzero": a.sell.slots_per_nonzero, "planes_slots_per_nonzero": ratio,
+            "layout_device_bytes": a.sell.device_bytes,
+            "layout_bytes": sell_bytes(a.sell, a.sell.vals.element_size(), padded=True),
+            "layout_build_s": build_s,
+            "same_as_built": same, "planes_bound_ms": bound_ms(planes_bytes)}
+
+
+def kernel_case(torch, stats, key, label, kern, plain, lib, nbytes, n_rows, counter, calls=20,
+                planes_plain=None, info=None):
     """One kernel against its plain version on the card, timed beside its
-    bound and the library call; one printed line.  Expects exact equality."""
+    bound and the library call; one printed line.  Expects bit equality, and
+    equality with ``planes_plain`` (the planes' product) where given."""
     before = counter()
     y, y_ref = kern(), plain()
     torch.cuda.synchronize()
     err = (y - y_ref).abs().max().item()
     require(counter() == before + 1, f"{label}: launch counter rose", quiet=True)
-    require(y.shape[0] == n_rows and bool(torch.isfinite(y).all()) and err == 0.0,
-            f"{label}: {n_rows} finite rows, max abs err {err:.3e} == 0", quiet=True)
+    require(y.shape[0] == n_rows and bool(torch.isfinite(y).all()) and err == 0.0
+            and bits_equal(torch, y, y_ref),
+            f"{label}: {n_rows} finite rows, bit for bit its plain version", quiet=True)
+    if planes_plain is not None:
+        require(bool(torch.equal(y, planes_plain())),
+                f"{label}: equal to the planes' plain version", quiet=True)
     ms = median_ms(kern, calls=calls)
     plain_ms = median_ms(plain, samples=3, calls=2)
     lib_ms = median_ms(lib, calls=calls)
     b_ms = bound_ms(nbytes)
+    info = dict(info or {})
+    extra = "".join(f", {k} {v:.4g}" if isinstance(v, float) else f", {k} {v}"
+                    for k, v in info.items())
     print(f"  {label}: err 0, kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
           f"{100 * b_ms / ms:.0f}% of the {b_ms:.4f} ms bound), plain {plain_ms:.3f} ms, "
-          f"torch.sparse_csr_tensor {lib_ms:.4f} ms")
+          f"torch.sparse_csr_tensor {lib_ms:.4f} ms{extra}")
     entry = stats.setdefault(key, {"err": 0.0})
     entry["err"] = max(entry["err"], err)
     if "ms" not in entry:  # the first case of each kernel is its main-path shape
-        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms)
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms, **info)
 
 
 def general_solve(smm, loop, torch, label, solver, a, b, csr, kw, launches, kname,
@@ -578,6 +638,7 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
 
     from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
     from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
     from sparse_matrix_math_tpu_torch.ops import trisweep as T
     from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 
@@ -640,8 +701,10 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
         x = rand(a.shape[1], dtype=dt)
         lib = lib_of(csr, dt)
         kernel_case(torch, stats, "wsell_spmv", label, lambda: W.wsell_spmv(a, x),
-                    lambda: W.wsell_spmv_plain(a, x), lambda: lib @ x,
-                    wsell_bytes(a, 1, x.element_size()), a.shape[0], w7)
+                    lambda: S.sell_spmv_plain(a.sell, x), lambda: lib @ x,
+                    sell_bytes(a.sell, x.element_size()), a.shape[0], w7,
+                    planes_plain=lambda: W.wsell_spmv_plain(a, x),
+                    info=sell_layout_info(smm, torch, a, wsell_bytes(a, 1, x.element_size())))
     # K8 at k = 4 (the solves' panel width) and 8, f32
     lib = lib_of(jit[torch.float32], torch.float32)
     for k in (4, 8):
@@ -655,8 +718,10 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
         x = rand(e.shape[1], dtype=dt)
         lib = lib_of(jit[dt], dt)
         kernel_case(torch, stats, "ell_spmv", f"K6 ELL jittered {str(dt)[6:]}",
-                    lambda: E.ell_spmv(e, x), lambda: E.ell_spmv_plain(e, x), lambda: lib @ x,
-                    ell_bytes(e, x.element_size()), e.shape[0], lambda: E.launches["ell_spmv"])
+                    lambda: E.ell_spmv(e, x), lambda: S.sell_spmv_plain(e.sell, x),
+                    lambda: lib @ x, sell_bytes(e.sell, x.element_size()), e.shape[0],
+                    lambda: E.launches["ell_spmv"], planes_plain=lambda: E.ell_spmv_plain(e, x),
+                    info=sell_layout_info(smm, torch, e, ell_bytes(e, x.element_size())))
     del lib, x, xs
 
     # -- the solves: counters at 0 just before, read just after ----------------
@@ -942,6 +1007,19 @@ def stream_bytes(p, table_len: int, itemsize: int) -> int:
     return p.n_vregs * (1024 * (2 * itemsize + 4) + 4) + table_len * itemsize
 
 
+def final_pass_csr(smm, torch, fin):
+    """The routed chain's final W-SELL pass as ``torch.sparse_csr_tensor``
+    (rows by the stream positions), the yardstick of that pass alone."""
+    from sparse_matrix_math_tpu_torch.formats.sell import wsell_products
+
+    row, col, val, _ = wsell_products(fin.vals, fin.meta, fin.base, fin.slab,
+                                      max(3, (8 * fin.window_f - 1).bit_length()), fin.nway)
+    order = torch.sort(row * fin.shape[1] + col).indices
+    crow = torch.zeros(fin.shape[0] + 1, dtype=torch.int64, device=row.device)
+    crow[1:] = torch.cumsum(torch.bincount(row, minlength=fin.shape[0]), 0)
+    return library_csr(torch, val[order], col[order], crow, fin.shape)
+
+
 class record_best_format:
     """While active, ``formats.best_format`` and the layout constructors it tries
     print their host seconds and what they returned; ``chosen`` holds the
@@ -990,6 +1068,7 @@ def phase_r(smm, loop, torch, dev, dia_solves):
     from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
     from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
     from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
     from sparse_matrix_math_tpu_torch.ops import stream_gather as R
     from sparse_matrix_math_tpu_torch.ops import trisweep as T
     from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
@@ -1133,11 +1212,16 @@ def phase_r(smm, loop, torch, dev, dia_solves):
         # against the float64 product on the host and the port's CSR rmult
         fin = ra.final
         y_fin = W.wsell_spmv(fin, t)
-        require(torch.equal(y_fin, W.wsell_spmv_plain(fin, t)),
+        require(bits_equal(torch, y_fin, S.sell_spmv_plain(fin.sell, t))
+                and bool(torch.equal(y_fin, W.wsell_spmv_plain(fin, t))),
                 f"K7 over the routed stream {name} (table of {t.shape[0]} for "
-                f"{fin.shape[1]} columns, {fin.n_slabs} slabs): equals its plain version",
-                quiet=True)
+                f"{n} rows, {fin.n_slabs} slabs): bit for bit its plain version, equal to "
+                f"the planes' plain version", quiet=True)
         final_ms = median_ms(lambda: W.wsell_spmv(fin, t))
+        fin_info = sell_layout_info(smm, torch, fin, wsell_bytes(fin, 1, t.element_size()))
+        fin_lib = final_pass_csr(smm, torch, fin)
+        fin_info["library_ms"] = median_ms(lambda: fin_lib @ t)
+        del fin_lib
         y = ra @ x
         require(torch.equal(y, y_fin), f"rmult(RoutedMatrix) {name} is the chain", quiet=True)
         import scipy.sparse as sp
@@ -1153,11 +1237,18 @@ def phase_r(smm, loop, torch, dev, dia_solves):
         require(rel_host <= tol and rel_csr <= tol,
                 f"routed product {name}: within {rel_host:.2e} of the host float64 CSR product "
                 f"and {rel_csr:.2e} of the port's CSR rmult (of max|y|, bound {tol:.0e})")
-        fin_bytes = wsell_bytes(fin, 1, t.element_size())
+        fin_bytes = sell_bytes(fin.sell, t.element_size())
+        fin_info["bound_ms"] = bound_ms(fin_bytes)
         print(f"  K7 final pass {name}: {final_ms:.4f} ms "
               f"({100 * bound_ms(fin_bytes) / final_ms:.0f}% of its {bound_ms(fin_bytes):.4f} ms "
-              f"bound); chain bytes {nbytes_all + fin_bytes}")
-        chains[dt] = (passes_ms, final_ms, bound_ms(nbytes_all + fin_bytes))
+              f"bound; over the layout's slots {bound_ms(fin_info['layout_bytes']):.4f} ms, "
+              f"the planes' {fin_info['planes_bound_ms']:.4f} ms), "
+              f"torch.sparse_csr_tensor of the pass {fin_info['library_ms']:.4f} ms, "
+              f"{fin_info['slots_per_nonzero']:.4f} slots per nonzero (planes "
+              f"{fin_info['planes_slots_per_nonzero']:.4f}), layout derived in "
+              f"{fin_info['layout_build_s']:.3f} s (same as built: {fin_info['same_as_built']}); "
+              f"chain bytes {nbytes_all + fin_bytes}")
+        chains[dt] = (passes_ms, final_ms, bound_ms(nbytes_all + fin_bytes), fin_info)
         del t, out, y, y_fin, x
     del op64
     torch.cuda.empty_cache()
@@ -1168,9 +1259,10 @@ def phase_r(smm, loop, torch, dev, dia_solves):
     chain_ms = median_ms(lambda: ra32 @ ones)
     csr_ms = median_ms(lambda: c32 @ ones)
     lib_ms = median_ms(lambda: lib @ ones)
-    passes_ms, final_ms, chain_bound = chains[torch.float32]
+    passes_ms, final_ms, chain_bound, fin_info = chains[torch.float32]
     stats.update(library_ms=lib_ms, passes_ms=passes_ms, final_ms=final_ms, chain_ms=chain_ms,
-                 chain_bound_ms=chain_bound, csr_ms=csr_ms, launches_per_solve=per_solve)
+                 chain_bound_ms=chain_bound, csr_ms=csr_ms, launches_per_solve=per_solve,
+                 final_pass={"ms": final_ms, **fin_info})
     print(f"routed product f32, x = ones: chain {chain_ms:.4f} ms "
           f"({c32.nnz / chain_ms / 1e6:.2f} GNNZ/s; passes {sum(passes_ms):.4f} ms + final K7 "
           f"{final_ms:.4f} ms; {100 * chain_bound / chain_ms:.0f}% of the chain's "
@@ -1372,6 +1464,11 @@ def main() -> int:
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": "bytes",
                 "library_ms": st["library_ms"]}
 
+    def layout(st):
+        return {k: st[k] for k in ("slots_per_nonzero", "planes_slots_per_nonzero",
+                                   "planes_bound_ms", "layout_device_bytes", "layout_bytes",
+                                   "layout_build_s", "same_as_built")}
+
     kernels = [
         entry("dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)", _SOURCE,
               f"{_PALLAS}:254", counts["dia_spmv_padded"], stats["dia_spmv_padded"],
@@ -1384,11 +1481,17 @@ def main() -> int:
         entry("tri_pair_apply (smm_tri_pair_apply_*: scale_kernel + sweep_kernel)", _TRI_SOURCE,
               f"{_TRI_PALLAS}:54", pcounts["tri_pair_apply"], stats["tri_pair_apply"],
               entry=f"{_TRI_PALLAS}:243"),
-        entry("ell_kernel (ell_spmv)", _ELL_SOURCE, f"{_PALLAS}:392", wcounts["ell_spmv"],
-              wstats["ell_spmv"], entry=f"{_PALLAS}:405"),
-        entry("wsell_kernel k=1 (wsell_spmv)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:89",
-              wcounts["wsell_spmv"], wstats["wsell_spmv"], also_replaces=f"{_WSELL_PALLAS}:119",
-              entry=f"{_WSELL_PALLAS}:207", routed_chain_launches=rcounts["wsell_spmv"]),
+        # K6 and K7 are one kernel over the slab-sorted SELL-32 layout; bound_ms
+        # counts the stored entries, layout_bytes the layout's slots (padding
+        # too), planes_bound_ms the planes' ELL / W-SELL model
+        entry("sell_kernel for ell_kernel (ell_spmv)", _SELL_SOURCE, f"{_PALLAS}:392",
+              wcounts["ell_spmv"], wstats["ell_spmv"], entry=f"{_PALLAS}:405",
+              layout=layout(wstats["ell_spmv"])),
+        entry("sell_kernel for wsell_kernel k=1 (wsell_spmv)", _SELL_SOURCE,
+              f"{_WSELL_PALLAS}:89", wcounts["wsell_spmv"], wstats["wsell_spmv"],
+              also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
+              layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],
+              routed_final_pass=rstats["final_pass"]),
         entry("wsell_kernel k=2..8 (wsell_spmm)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:165",
               wcounts["wsell_spmm"], wstats["wsell_spmm"], entry=f"{_WSELL_PALLAS}:287"),
         entry("dia_padded_df_kernel (dia_spmv_padded_df, dia_spmv_streamed_df)", _DF_SOURCE,

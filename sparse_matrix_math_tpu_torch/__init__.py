@@ -11,9 +11,11 @@ optionally preconditioned (Jacobi, SGS, IC0, ILU0, Chebyshev), and get a
 routed to DIA, else to W-SELL, else (with no preconditioner) through an RCM
 renumbering to W-SELL.  The matvec of a DIA solve is the hand-written kernel
 in ``csrc/dia_spmv.cu`` and its SGS, IC0 or ILU0 apply one call of the fused
-sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, and
-each strict-factor product of its preconditioner, is ``csrc/wsell_spmv.cu``;
-an ELL matrix's is ``csrc/ell_spmv.cu``; each routing pass of a
+sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, each
+strict-factor product of its preconditioner, and an ELL matrix's product
+are ``csrc/sell_spmv.cu`` over the slab-sorted SELL-32 layout each matrix
+carries (``formats/sell.py``), a W-SELL panel product ``csrc/wsell_spmv.cu``;
+each routing pass of a
 :class:`RoutedMatrix` is ``csrc/stream_gather.cu``.  :func:`cg_df64`,
 :func:`bicgstab_df64`, :func:`cg_ir_df64` and :func:`bicgstab_ir_df64` solve
 with double-word operators (:class:`DfDiaMatrix`, :class:`DfEllMatrix`,

@@ -1,10 +1,12 @@
-// W-SELL sparse matrix products for Hopper (sm_90a): y = A x (K7) and
-// Y = A X for up to 8 columns of X (K8), one kernel template for both.
+// W-SELL sparse matrix product for Hopper (sm_90a): Y = A X for up to 8
+// columns of X (K8), over the W-SELL planes.
 //
-// Replaces the Pallas TPU kernels of sparse_matrix_math_tpu/ops/pallas_wsell.py:
-//   _wsell_kernel       (:89)  and _wsell_kernel_hbm (:119), helper
-//   _gather_products    (:45)  -> wsell_kernel<T, 1, NWAY>   (smm_wsell_spmm_*, k = 1)
-//   _wsell_spmm_kernel  (:165) -> wsell_kernel<T, 8, NWAY>   (smm_wsell_spmm_*, k = 2..8)
+// Replaces the Pallas TPU kernel of sparse_matrix_math_tpu/ops/pallas_wsell.py:
+//   _wsell_spmm_kernel  (:165), helper _gather_products (:45)
+//     -> wsell_kernel<T, 8, NWAY>   (smm_wsell_spmm_*, k = 1..8)
+// K7 (y = A x, TPU _wsell_kernel :89 / _wsell_kernel_hbm :119) reads the
+// slab-sorted SELL-32 layout derived from these planes instead
+// (csrc/sell_spmv.cu); this kernel computes the same sums in the same order.
 // The layout is formats/wsell.py's: per vreg v (plane rows 8v..8v+7, 128
 // lanes), meta holds SW | LSRC << sw_bits | SHIFT << (sw_bits + 7); the
 // slot at (p, L) multiplies vals[8v+p, L] by x[(base[v] + sw) * 128 + lsrc]
@@ -183,12 +185,9 @@ int launch(const void* vals, const void* meta, const void* base, const void* sla
   if (k < 1 || k > kMaxColumns || sw_bits < 3 || sw_bits > 7)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_slabs == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k == 1)
-    return launch_nway<T, 1>(vals, meta, base, slab_ptr, x, y, n_slabs, n_rows, n_cols, k,
-                             sw_bits, nway, st);
   return launch_nway<T, kMaxColumns>(vals, meta, base, slab_ptr, x, y, n_slabs, n_rows,
-                                     n_cols, k, sw_bits, nway, st);
+                                     n_cols, k, sw_bits, nway,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

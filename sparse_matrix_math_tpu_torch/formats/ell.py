@@ -4,18 +4,21 @@ Port of ``sparse_matrix_math_tpu/formats/ell.py``.  ``vals`` and ``cols``
 are ``(rows_padded, K)``, as the JAX format stores them: K is the longest
 row, rows are padded to a multiple of 8, and padding slots hold value 0 and
 column 0, so ``sum_k vals[:, k] * x[cols[:, k]]`` needs no mask.  The
-product is kernel K6 (``ops/ell_spmv.py``).
+product is kernel K6 (``ops/ell_spmv.py``), which reads ``sell``: the
+slab-sorted SELL-32 layout of the live slots (``formats/sell.py``), derived
+from the planes when the matrix is made.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .csr import CSRMatrix
+from .sell import SellMatrix, sell_from_ell
 
 __all__ = ["ELLMatrix", "ell_from_csr"]
 
@@ -30,6 +33,14 @@ class ELLMatrix:
     cols: torch.Tensor  # (rows_padded, K) int32
     shape: Tuple[int, int]
     nnz: int
+    # K6's layout; derived here when not given, each row's live slots ending
+    # before its trailing slots of value 0 and column 0
+    sell: Optional[SellMatrix] = None
+
+    def __post_init__(self):
+        if self.sell is None:
+            object.__setattr__(self, "sell", sell_from_ell(self.vals, self.cols, self.shape,
+                                                           self.nnz))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -54,7 +65,7 @@ class ELLMatrix:
         return self.nnz / total if total else 1.0
 
     def astype(self, dtype: torch.dtype) -> "ELLMatrix":
-        return dataclasses.replace(self, vals=self.vals.to(dtype))
+        return dataclasses.replace(self, vals=self.vals.to(dtype), sell=self.sell.astype(dtype))
 
     def rmult(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops import spmv
@@ -89,6 +100,8 @@ def ell_from_csr(csr: CSRMatrix, *, row_align: int = _ROW_ALIGN) -> ELLMatrix:
     row_of = np.repeat(np.arange(n_rows), row_nnz)
     vals[row_of, slot] = data
     cols[row_of, slot] = indices
-    return ELLMatrix(vals=torch.from_numpy(vals).to(csr.device),
-                     cols=torch.from_numpy(cols).to(csr.device),
-                     shape=(int(n_rows), int(n_cols)), nnz=csr.nnz)
+    vals, cols = torch.from_numpy(vals).to(csr.device), torch.from_numpy(cols).to(csr.device)
+    shape = (int(n_rows), int(n_cols))
+    sell = sell_from_ell(vals, cols, shape, csr.nnz,
+                         row_nnz=torch.from_numpy(row_nnz).to(csr.device))
+    return ELLMatrix(vals=vals, cols=cols, shape=shape, nnz=csr.nnz, sell=sell)

@@ -16,9 +16,12 @@ planes then live on the CSR's device.  Layout, in short:
   of the slot at that lane, and with ``nway > 1`` a 3-bit SHIFT above LSRC;
 * ``base[v]`` is vreg v's window base in x-table rows, ``slab[v]`` its
   output slab (nondecreasing).  ``slab_ptr`` (not a JAX field) gives each
-  slab's vreg range, the kernel's work list.
+  slab's vreg range, K8's work list.
+* ``sell`` (not a JAX field) is the slab-sorted SELL-32 layout of the
+  planes' live slots (``formats/sell.py``), derived on the planes' device
+  when the matrix is made; K7 reads it.
 
-``ops/wsell_spmv.py`` holds the product (kernels K7, K8).
+``ops/wsell_spmv.py`` holds the products (kernels K7, K8).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from .. import native
 from .csr import CSRMatrix
+from .sell import SellMatrix, sell_from_wsell
 
 __all__ = ["WSellMatrix", "wsell_from_csr", "try_wsell_from_csr"]
 
@@ -72,6 +76,15 @@ class WSellMatrix:
     slot_ratio: float
     window_f: int = 1
     nway: int = 1
+    # K7's layout; derived here when not given, taking a slot for padding
+    # when its value, LSRC and SHIFT are all 0 (formats/sell.py)
+    sell: Optional[SellMatrix] = None
+
+    def __post_init__(self):
+        if self.sell is None:
+            object.__setattr__(self, "sell", sell_from_wsell(
+                self.vals, self.meta, self.base, self.slab, self.shape, self.nnz,
+                _lsrc_shift(self.window_f), self.nway))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -86,7 +99,7 @@ class WSellMatrix:
         return int(self.base.shape[0])
 
     def astype(self, dtype: torch.dtype) -> "WSellMatrix":
-        return dataclasses.replace(self, vals=self.vals.to(dtype))
+        return dataclasses.replace(self, vals=self.vals.to(dtype), sell=self.sell.astype(dtype))
 
     def rmult(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops import spmv
@@ -341,6 +354,7 @@ def _wsell_from_coo(r: np.ndarray, c: np.ndarray, v: np.ndarray, shape: Tuple[in
                                 np.full(pad_v, n_slabs - 1, np.int32)])
 
     meta = None
+    row_global = None
     if plan is not None and r.size and nway == 1:
         meta_plane = np.zeros((total_rows, LANE), np.int32)
         if native.wsell_emit(_lsrc_shift(window_f), wrows, r, c, v, job, row,
@@ -372,14 +386,26 @@ def _wsell_from_coo(r: np.ndarray, c: np.ndarray, v: np.ndarray, shape: Tuple[in
             shift_plane[row_global, lane_out] = shift_of
             meta = meta | (shift_plane << (_lsrc_shift(window_f) + 7)).astype(np.int32)
 
+    # the slots that hold a nonzero, for the derived layout
+    live = np.zeros(total_rows * LANE, bool)
+    if r.size:
+        if row_global is None:  # the native emit placed them (nway 1)
+            row_global = (vreg_start_of_job[job] * 8 + np.asarray(row, np.int64) * 8
+                          + (r % SLAB) // LANE)
+        live[row_global * LANE + r % LANE] = True
+
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    planes = dict(vals=put(vals_plane), meta=put(meta), base=put(base_vreg), slab=put(slab_vreg))
+    shape = (int(n_rows), int(n_cols))
+    sell = sell_from_wsell(*planes.values(), shape, int(nnz), _lsrc_shift(window_f), int(nway),
+                           live=put(live).view(total_rows, LANE))
     return WSellMatrix(
-        vals=put(vals_plane), meta=put(meta), base=put(base_vreg), slab=put(slab_vreg),
-        slab_ptr=put(slab_pointers(slab_vreg, n_slabs)),
-        shape=(int(n_rows), int(n_cols)), nnz=int(nnz), n_slabs=int(n_slabs),
+        **planes, slab_ptr=put(slab_pointers(slab_vreg, n_slabs)),
+        shape=shape, nnz=int(nnz), n_slabs=int(n_slabs),
         x_rows=int(x_rows), slot_ratio=slot_ratio, window_f=int(window_f), nway=int(nway),
+        sell=sell,
     )
 
 

@@ -63,7 +63,8 @@ def wsell_from_numpy(fields, device) -> WSellMatrix:
     """A :class:`WSellMatrix` from a mapping of its fields: the planes
     ``vals``, ``meta``, ``base`` and ``slab``, and ``shape``, ``nnz``,
     ``n_slabs``, ``x_rows``, ``slot_ratio``, ``window_f`` and ``nway``.
-    ``slab_ptr`` is derived from ``slab``."""
+    ``slab_ptr`` is derived from ``slab``, and K7's slab-sorted SELL-32
+    layout from the planes (padding told by rule, ``formats/sell.py``)."""
     slab = np.asarray(fields["slab"], dtype=np.int32)
     planes = dict(vals=np.asarray(fields["vals"]), meta=np.asarray(fields["meta"], np.int32),
                   base=np.asarray(fields["base"], np.int32), slab=slab,
@@ -76,7 +77,9 @@ def wsell_from_numpy(fields, device) -> WSellMatrix:
 
 
 def ell_from_numpy(vals, cols, shape, nnz, device) -> ELLMatrix:
-    """An :class:`ELLMatrix` from its ``(rows_padded, K)`` planes."""
+    """An :class:`ELLMatrix` from its ``(rows_padded, K)`` planes (K6's
+    layout derived from them, each row's live slots ending before its
+    trailing slots of value 0 and column 0)."""
     return ELLMatrix(vals=torch.tensor(np.asarray(vals), device=device),
                      cols=torch.tensor(np.asarray(cols, dtype=np.int32), device=device),
                      shape=(int(shape[0]), int(shape[1])), nnz=int(nnz))

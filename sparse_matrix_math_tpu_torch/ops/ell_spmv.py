@@ -1,17 +1,24 @@
-"""ELL SpMV: the Hopper kernel and its plain version.
+"""ELL SpMV: the Hopper kernel and its plain versions.
 
-Port of ``sparse_matrix_math_tpu/ops/pallas_spmv.py:389-452``.  The kernel
-is ``csrc/ell_spmv.cu`` (its header gives the bytes model): :func:`ell_spmv`
-(K6, TPU ``_ell_kernel``) computes ``y[i] = sum_k vals[i, k] * x[cols[i, k]]``
-for ``i < n_rows``, summing k in ascending order from the first product.
+Port of ``sparse_matrix_math_tpu/ops/pallas_spmv.py:389-452``.
+:func:`ell_spmv` (K6, TPU ``_ell_kernel``) computes ``y[i] = sum_k vals[i, k]
+* x[cols[i, k]]`` for ``i < n_rows``, summing k in ascending order.  On the
+card it launches ``csrc/sell_spmv.cu`` (``ops/sell_spmv.py``) over the
+matrix's slab-sorted SELL-32 layout (``ELLMatrix.sell``), which holds each
+row's live slots in that order and skips the padding; the planes are not
+read.  :func:`ell_spmv_plain` is the planes' product, the JAX order with
+the padding slots' ``0 * x[0]`` added; the layout's plain version
+(``sell_spmv_plain``) equals it bit for bit for finite x, up to the sign of
+a zero sum.
 
 A recorded deviation: the JAX package's ``rmult`` on an ``ELLMatrix`` runs
 XLA (ops/spmv.py:156-161), because Mosaic cannot compile the kernel's 1-D
 gather (pallas_spmv.py:435-449); the card gathers natively, so the port's
 ``rmult`` on a CUDA ``ELLMatrix`` launches K6.
 
-A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  Each launch adds one to :data:`launches`.
+A wrapper given CPU tensors runs the layout's plain version; given CUDA
+tensors it launches the kernel or raises.  Each launch adds one to
+:data:`launches`.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.ell import ELLMatrix
+from . import sell_spmv as _sell
 
 __all__ = ["ell_spmv", "ell_spmv_plain", "launches", "reset_launch_counts"]
 
@@ -34,8 +42,8 @@ def reset_launch_counts() -> None:
 
 
 def ell_spmv_plain(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Plain K6: the first slot's product, then each later slot's product
-    added in slot order, over the first ``n_rows`` rows."""
+    """The planes' product: the first slot's product, then each later slot's
+    product added in slot order, over the first ``n_rows`` rows."""
     n = a.shape[0]
     cols = a.cols[:n].long()
     acc = a.vals[:n, 0] * x[cols[:, 0]]
@@ -59,15 +67,7 @@ def ell_spmv(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
                                            and x.is_contiguous()):
         raise ValueError("the planes must be contiguous, cols int32, and x contiguous")
     if x.device.type == "cpu":
-        return ell_spmv_plain(a, x)
-    from . import _build
-
-    lib = _build.library()
-    fn = lib.smm_ell_spmv_f32 if x.dtype == torch.float32 else lib.smm_ell_spmv_f64
-    y = torch.empty(a.shape[0], dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        code = fn(a.vals.data_ptr(), a.cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-                  a.shape[0], a.slots, torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "ell_spmv")
+        return _sell.sell_spmv_plain(a.sell, x)
+    y = _sell.launch(a.sell, x, "ell_spmv")
     launches["ell_spmv"] += 1
     return y

@@ -1,13 +1,16 @@
 """W-SELL SpMV and SpMM: the Hopper kernels and their plain versions.
 
-Port of ``sparse_matrix_math_tpu/ops/pallas_wsell.py``.  The kernels are
-``csrc/wsell_spmv.cu`` (its header gives the bytes model and the design):
+Port of ``sparse_matrix_math_tpu/ops/pallas_wsell.py``.  Two kernels (each
+header gives its bytes model and design):
 
 * :func:`wsell_spmv` (K7, TPU ``_wsell_kernel`` and ``_wsell_kernel_hbm``)
-  — ``y = A @ x``;
+  — ``y = A @ x``, ``csrc/sell_spmv.cu`` (``ops/sell_spmv.py``) over the
+  matrix's slab-sorted SELL-32 layout (``WSellMatrix.sell``), which holds
+  the planes' live products in the order below and skips their padding;
 * :func:`wsell_spmm` (K8, TPU ``_wsell_spmm_kernel``) — ``Y = A @ X`` for
-  ``X`` of shape ``(n_cols, k)``, each slot read once per launch and applied
-  to up to :data:`SPMM_COLUMNS` columns.
+  ``X`` of shape ``(n_cols, k)``, ``csrc/wsell_spmv.cu`` over the planes,
+  each slot read once per launch and applied to up to
+  :data:`SPMM_COLUMNS` columns.
 
 Per vreg ``v`` and slot ``(p, L)`` (row ``8v + p`` and lane ``L`` of the
 planes), with ``sw_bits = max(3, bitlen(8F - 1))``:
@@ -23,12 +26,15 @@ sublane sums its own shift-0 product, then the rotated ones in rotation
 order, exactly as ``_gather_products`` (pallas_wsell.py:75-86).  The slab's
 rows then add the routed products of its vregs in ascending vreg order.  The
 plain versions follow that order, and the kernels round each product and sum
-alone, so the two agree bit for bit.
+alone, so the two agree bit for bit.  The layout's plain version
+(``sell_spmv_plain``) sums the same products in the same order without the
+padding, so it equals :func:`wsell_spmv_plain` bit for bit for finite x, up
+to the sign of a zero sum.
 
 The TPU's VMEM-resident and HBM-streamed variants (``_VMEM_TABLE_BYTES``,
 ``force_hbm``, :202-262) are one kernel here: x is read through the 50 MB L2.
-A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  Each launch adds one to :data:`launches`.
+A wrapper given CPU tensors runs its kernel's plain version; given CUDA
+tensors it launches the kernel or raises.  Each launch adds one to :data:`launches`.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.wsell import LANE, SLAB, WSellMatrix
+from . import sell_spmv as _sell
 
 __all__ = ["wsell_spmv", "wsell_spmm", "wsell_spmv_plain", "wsell_spmm_plain",
            "launches", "reset_launch_counts", "SPMM_COLUMNS"]
@@ -64,8 +71,9 @@ def _sw_bits(a: WSellMatrix) -> int:
 
 
 def wsell_spmm_plain(a: WSellMatrix, xs: torch.Tensor) -> torch.Tensor:
-    """Plain K7/K8 for ``xs`` of shape ``(n_cols, k)``: the kernel's index
-    math and summation order, in PyTorch ops; returns ``(n_rows, k)``."""
+    """Plain K8 (and the planes' K7 order) for ``xs`` of shape ``(n_cols,
+    k)``: the kernel's index math and summation order, in PyTorch ops;
+    returns ``(n_rows, k)``."""
     n_rows, n_cols = a.shape
     k = xs.shape[1]
     v = a.n_vregs
@@ -96,7 +104,7 @@ def wsell_spmm_plain(a: WSellMatrix, xs: torch.Tensor) -> torch.Tensor:
 
 
 def wsell_spmv_plain(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Plain K7: :func:`wsell_spmm_plain` of one column."""
+    """The planes' product of one column: :func:`wsell_spmm_plain`."""
     return wsell_spmm_plain(a, x.unsqueeze(1)).squeeze(1)
 
 
@@ -119,8 +127,8 @@ def _check(a: WSellMatrix, x: torch.Tensor, ndim: int) -> None:
         raise ValueError("planes and x must be contiguous")
 
 
-def _launch(a: WSellMatrix, x: torch.Tensor, y: torch.Tensor, k: int, what: str) -> None:
-    """One kernel launch over row-major x (n_cols, k) into y (n_rows, k)."""
+def _launch(a: WSellMatrix, x: torch.Tensor, y: torch.Tensor, k: int) -> None:
+    """One K8 launch over row-major x (n_cols, k) into y (n_rows, k)."""
     from . import _build
 
     lib = _build.library()
@@ -130,17 +138,17 @@ def _launch(a: WSellMatrix, x: torch.Tensor, y: torch.Tensor, k: int, what: str)
                   a.slab_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_slabs,
                   a.shape[0], a.shape[1], k, _sw_bits(a), a.nway,
                   torch.cuda.current_stream().cuda_stream)
-    _build.check(code, what)
-    launches[what] += 1
+    _build.check(code, "wsell_spmm")
+    launches["wsell_spmm"] += 1
 
 
 def wsell_spmv(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
     """K7: y = A @ x for a W-SELL matrix and a length-``n_cols`` x."""
     _check(a, x, 1)
     if x.device.type == "cpu":
-        return wsell_spmv_plain(a, x)
-    y = torch.empty(a.shape[0], dtype=x.dtype, device=x.device)
-    _launch(a, x, y, 1, "wsell_spmv")
+        return _sell.sell_spmv_plain(a.sell, x)
+    y = _sell.launch(a.sell, x, "wsell_spmv")
+    launches["wsell_spmv"] += 1
     return y
 
 
@@ -157,7 +165,7 @@ def wsell_spmm(a: WSellMatrix, xs: torch.Tensor) -> torch.Tensor:
         x_part = xs[:, j0:j0 + kc].contiguous()
         y_part = ys if kc == k else torch.empty((a.shape[0], kc), dtype=xs.dtype,
                                                 device=xs.device)
-        _launch(a, x_part, y_part, kc, "wsell_spmm")
+        _launch(a, x_part, y_part, kc)
         if y_part is not ys:
             ys[:, j0:j0 + kc] = y_part
     return ys

@@ -2,9 +2,10 @@
 
 torch has no ``lax.while_loop``.  The cores run their recurrence in chunks
 of :data:`CHUNK` iterations with the loop condition kept as a device tensor:
-an iteration whose condition is false is frozen (step sizes 0, direction
-kept, ``k`` not advanced), so the iteration count equals the JAX loop's
-exactly while the host reads the condition once per chunk.  Every host read
+an iteration whose condition is false is frozen (every state tensor kept
+bit for bit by ``torch.where``, ``k`` not advanced), so the iteration count
+and the state equal the JAX loop's exactly while the host reads the
+condition once per chunk.  Every host read
 goes through :func:`read` and is counted in :data:`host_syncs`.
 """
 

@@ -83,8 +83,8 @@ def _inner(matvec, dotfn, x, r, rr, k, eps, eps2, maxiter: int, trace):
             # step, so the step is masked out
             s_now = (eps > torch.abs(denom)) & (rr > 1.0)
             alpha = torch.where(s_now | ~active, 0, rr / denom)
-            x = x + alpha * p
-            r = r - alpha * ap
+            x = torch.where(active, x + alpha * p, x)
+            r = torch.where(active, r - alpha * ap, r)
             new_rr = torch.where(s_now, rr, dotfn(r, r))
             # critical breakdown (h:2079-2081): after the step, which stands
             c_now = (new_rr > 1.0) & (rr < eps)

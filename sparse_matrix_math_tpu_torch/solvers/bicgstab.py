@@ -93,8 +93,8 @@ def _inner(matvec, precond, dotfn, x, r, r0, p, rr0, k, chunk_end: int, eps,
             asas = dotfn(as_, as_)
             bd2 = torch.abs(asas) < tiny
             omega = torch.where(bd2 | ~active, 0, dotfn(as_, s) / asas)
-            x = x + alpha * p + omega * s
-            r = s - omega * as_
+            x = torch.where(active, x + alpha * p + omega * s, x)
+            r = torch.where(active, s - omega * as_, r)
             new_res_norm = torch.sqrt(dotfn(r, r))
             new_rr0 = dotfn(r, r0)
             bd3 = (torch.abs(rr0) < tiny) | (torch.abs(omega) < tiny)

@@ -95,8 +95,8 @@ def _cg_inner(matvec, dotfn, precond, x, r, rr, k, eps2, maxiter, trace):
         for _ in range(_loop.CHUNK):
             ap = matvec(p)
             alpha = torch.where(active, rz / dotfn(ap, p), 0)
-            x = x + alpha * p
-            r = r - alpha * ap
+            x = torch.where(active, x + alpha * p, x)
+            r = torch.where(active, r - alpha * ap, r)
             new_rr = dotfn(r, r)
             if precond is None:
                 z, new_rz = r, new_rr

@@ -90,8 +90,8 @@ def _inner(matvec, dotfn, x, r, rr0, k, eps2, tiny, maxiter: int, trace):
             alpha = torch.where(bd1 | ~active, 0, rr0 / denom)
             q_n = u - alpha * ap
             uq = u + q_n
-            x = x + alpha * uq
-            r = r - alpha * matvec(uq)
+            x = torch.where(active, x + alpha * uq, x)
+            r = torch.where(active, r - alpha * matvec(uq), r)
             new_rr0 = dotfn(r, r0)
             new_rr = dotfn(r, r)
             bd2 = torch.abs(rr0) < tiny

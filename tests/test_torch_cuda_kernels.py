@@ -18,6 +18,7 @@ import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
 from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
 from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
 from sparse_matrix_math_tpu_torch.ops import stream_gather as R
 from sparse_matrix_math_tpu_torch.ops import trisweep as T
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
@@ -41,6 +42,12 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels run only there")
     return torch.device("cuda", 0)
+
+
+def bits_equal(a, b):
+    """Bit for bit, the sign of a zero included."""
+    word = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and torch.equal(a.view(word), b.view(word))
 
 
 def _dia(name, args, dtype, device):
@@ -191,6 +198,9 @@ def test_preconditioned_solves_match_cpu(cuda_device, kind):
 
 
 # -- general patterns: K6 (ELL), K7 and K8 (W-SELL) -------------------------------
+# K6 and K7 launch csrc/sell_spmv.cu over the slab-sorted SELL-32 layout: bit
+# for bit its plain version, and equal to the planes' plain version (which
+# sums the same terms in the same order, padding products included).
 
 WSELL_CASES = [
     ("poisson_2d", (48,), {}),
@@ -218,6 +228,7 @@ def test_wsell_kernels_match_plain(cuda_device, name, args, kw, dtype):
     y = W.wsell_spmv(ws, x)
     torch.cuda.synchronize()
     assert W.launches["wsell_spmv"] == before["wsell_spmv"] + 1
+    assert bits_equal(y, S.sell_spmv_plain(ws.sell, x))
     assert torch.equal(y, W.wsell_spmv_plain(ws, x))
     for k in (1, 3, 8, 9):
         xs = torch.as_tensor(gen.standard_normal((ws.shape[1], k)), device=cuda_device).to(dtype)
@@ -240,7 +251,9 @@ def test_wsell_empty_slabs_and_rectangular(cuda_device):
         csr = smm.csr_from_coo(smm.coo_from_arrays(r, c, v, shape, device=cuda_device))
         ws = smm.wsell_from_csr(csr, **kw)
         x = torch.as_tensor(rng.standard_normal(shape[1]), device=cuda_device)
-        assert torch.equal(W.wsell_spmv(ws, x), W.wsell_spmv_plain(ws, x))
+        y = W.wsell_spmv(ws, x)
+        assert bits_equal(y, S.sell_spmv_plain(ws.sell, x))
+        assert torch.equal(y, W.wsell_spmv_plain(ws, x))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
@@ -253,6 +266,7 @@ def test_ell_kernel_matches_plain(cuda_device, name, args, dtype):
     y = E.ell_spmv(ell, x)
     torch.cuda.synchronize()
     assert E.launches["ell_spmv"] == before + 1
+    assert bits_equal(y, S.sell_spmv_plain(ell.sell, x))
     assert torch.equal(y, E.ell_spmv_plain(ell, x))
 
 
@@ -265,6 +279,25 @@ def test_general_wrappers_raise_on_cuda(cuda_device):
             fn(a, x.float())
         with pytest.raises(ValueError):
             fn(a, x.cpu())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_ic0_strict_factor_k7_matches_plain(cuda_device, dtype):
+    """K7 on the W-SELL strict factors of IC(0), as the Jacobi sweeps call it."""
+    csr = _csr("laplace_3d_jittered", (16,), dtype, cuda_device)
+    pre = smm.IC0Preconditioner.from_matrix(csr, method="jacobi", sweeps=4,
+                                            strict_layout="wsell")
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(csr.shape[1]),
+                        device=cuda_device).to(dtype)
+    for tri in (pre.lower, pre.upper):
+        ws = tri.wsell
+        assert ws.sell.slots_per_nonzero <= ws.slot_ratio
+        before = W.launches["wsell_spmv"]
+        y = W.wsell_spmv(ws, x)
+        torch.cuda.synchronize()
+        assert W.launches["wsell_spmv"] == before + 1
+        assert bits_equal(y, S.sell_spmv_plain(ws.sell, x))
+        assert torch.equal(y, W.wsell_spmv_plain(ws, x))
 
 
 @pytest.mark.parametrize("kind", ["wsell", "ell", "reorder", "ic0"])
@@ -424,6 +457,7 @@ def test_stream_gather_matches_plain(cuda_device, name, gen, kw, dtype):
     torch.cuda.synchronize()
     assert R.launches["stream_gather"] == n11 + len(ra.passes)
     assert W.launches["wsell_spmv"] == n7 + 1
+    assert bits_equal(y, S.sell_spmv_plain(ra.final.sell, t))
     assert torch.equal(y, W.wsell_spmv_plain(ra.final, t))
     ref = csr @ x
     tol = 1e-5 if dtype == torch.float32 else 1e-13
