@@ -5,8 +5,8 @@ paths and its front door once on one CUDA card.
     python3 chip_smoke.py
 
 It builds the hand-written kernels (``csrc/dia_spmv.cu``, ``csrc/trisweep.cu``,
-``csrc/wsell_spmv.cu``, ``csrc/sell_spmv.cu``, ``csrc/dia_spmv_df.cu``,
-``csrc/stream_gather.cu``) with nvcc, one process per source, and the native
+``csrc/sell_spmv.cu``, ``csrc/dia_spmv_df.cu``, ``csrc/stream_gather.cu``) with
+nvcc, one process per source, and the native
 factorizations and W-SELL / R-SELL layout routines (``csrc/smm_native.cpp``)
 with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
 PyTorch version on the card, in f32 and f64, at the systems the solve paths
@@ -22,12 +22,21 @@ every apply one launch of K4 or K5.  Phase W does both for the
 general-pattern path: the JAX bench's unstructured system
 (``laplace_3d_jittered(113)``, 17.5M nnz) routed to W-SELL, its IC(0)
 strict factors in W-SELL, a shuffled ``poisson_2d(1414)`` routed through
-RCM to W-SELL, and ELL: kernels K6 (ELL) and K7 (W-SELL, one column), one
-kernel over the slab-sorted SELL-32 layout derived with each matrix, and K8
-(W-SELL planes, 2-8 columns) against their plain versions beside the
-``torch.sparse_csr_tensor`` product, with the layout's bound, the planes'
-bound, slots per nonzero and the layout's derivation time, then the solves
-with the counters reset just before them.  Phase D does both for the
+RCM to W-SELL, and ELL: kernels K6 (ELL), K7 (W-SELL, one column) and K8
+(2-8 columns; on the system and, at 4 columns, on both IC(0) strict
+factors), one kernel over the slab-sorted SELL-32 layout derived with
+each matrix, against their plain versions beside the
+``torch.sparse_csr_tensor`` product, K8 also against the planes' product and
+against K7 launched on each column (bit for bit, and timed), with the
+layout's bound, the planes' bound, slots per nonzero and the layout's
+derivation time, then the solves with the counters reset just before them,
+and one panel launch serving up to 8 columns of a W-SELL or ELL ``rmult``.
+Phase M does both for the multi-RHS path: ``cg_multi`` on the jittered
+system through W-SELL with 4 columns in f32 and f64, and with IC(0)(4) in
+f32 (K8 for the panel product and every strict-factor product), each column
+held to the host's residual and to a single-column ``cg``, K8's launches to
+the loop's count; and ``solve(csr, B, auto_format=True)`` on
+``poisson_2d(1414)`` through the grid stencil.  Phase D does both for the
 double-word path (values as pairs of float32, hi + lo): the double-word DIA
 kernel K9/K10 against its plain version, both words bit for bit, on
 ``poisson_2d(1414)``, ``poisson_3d(243)`` and ``poisson_3d_27pt(128)``, then
@@ -69,7 +78,6 @@ _SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv.cu"
 _TRI_PALLAS = "sparse_matrix_math_tpu/ops/pallas_trisweep.py"
 _TRI_SOURCE = "sparse_matrix_math_tpu_torch/csrc/trisweep.cu"
 _WSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_wsell.py"
-_WSELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/wsell_spmv.cu"
 _SELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/sell_spmv.cu"
 _DF_SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv_df.cu"
 _RSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_rsell.py"
@@ -510,14 +518,15 @@ def ell_bytes(ell, itemsize: int) -> int:
     return ell.rows_padded * ell.slots * (itemsize + 4) + sum(ell.shape) * itemsize
 
 
-def sell_bytes(s, itemsize: int, padded: bool = False) -> int:
-    """K6's and K7's bytes model over the slab-sorted SELL-32 layout: each
-    stored entry's value and column word, the chunk pointers and the row map
-    once, x and y once.  ``padded`` counts every slot of the layout, its
-    padding too: what the kernel reads, where the function needs the entries."""
+def sell_bytes(s, itemsize: int, padded: bool = False, k: int = 1) -> int:
+    """K6's, K7's and (``k`` columns) K8's bytes model over the slab-sorted
+    SELL-32 layout: each stored entry's value and column word, the chunk
+    pointers and the row map once, X and Y once.  ``padded`` counts every
+    slot of the layout, its padding too: what the kernel reads, where the
+    function needs the entries."""
     entries = s.n_slots if padded else s.nnz
     return (entries * (itemsize + 4) + s.chunk_ptr.numel() * 8 + s.row_of.numel() * 2
-            + sum(s.shape) * itemsize)
+            + k * sum(s.shape) * itemsize)
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -561,7 +570,8 @@ def kernel_case(torch, stats, key, label, kern, plain, lib, nbytes, n_rows, coun
                 planes_plain=None, info=None):
     """One kernel against its plain version on the card, timed beside its
     bound and the library call; one printed line.  Expects bit equality, and
-    equality with ``planes_plain`` (the planes' product) where given."""
+    equality with ``planes_plain`` (the planes' product) where given.
+    Returns the case's numbers."""
     before = counter()
     y, y_ref = kern(), plain()
     torch.cuda.synchronize()
@@ -587,6 +597,7 @@ def kernel_case(torch, stats, key, label, kern, plain, lib, nbytes, n_rows, coun
     entry["err"] = max(entry["err"], err)
     if "ms" not in entry:  # the first case of each kernel is its main-path shape
         entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms, **info)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms}
 
 
 def general_solve(smm, loop, torch, label, solver, a, b, csr, kw, launches, kname,
@@ -689,14 +700,20 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
     # K7: the jittered system in f32 and f64, the RCM-permuted shuffled
     # system, the IC(0) strict factor layout
     ro32 = ro.inner.astype(torch.float32)  # the stencil's values are exact in f32
-    lt = lower32
-    crow = torch.zeros(lt.n + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(torch.bincount(lt.row_ids, minlength=lt.n), 0)
+
+    def strict_csr(tri):
+        # the strict part of a triangular factor as a CSR (rows are sorted)
+        ptr = torch.zeros(tri.n + 1, dtype=torch.int64, device=dev)
+        ptr[1:] = torch.cumsum(torch.bincount(tri.row_ids, minlength=tri.n), 0)
+        return smm.CSRMatrix(data=tri.data, indices=tri.indices, indptr=ptr,
+                             row_ids=tri.row_ids, shape=(tri.n, tri.n))
+
+    upper32 = ic[torch.float32].upper
+    require(upper32.wsell is not None, "IC(0) strict U -> W-SELL", quiet=True)
+    strict = {"L": (lower32.wsell, strict_csr(lower32)), "U": (upper32.wsell, strict_csr(upper32))}
     k7_cases = [(f"K7 jittered {str(dt)[6:]}", ws[dt], jit[dt], dt) for dt in ws]
     k7_cases += [("K7 shuffled poisson_2d(1414) RCM f32", ro32, ro.inner_csr, torch.float32),
-                 ("K7 IC(0) strict L jittered f32", lt.wsell,
-                  smm.CSRMatrix(data=lt.data, indices=lt.indices, indptr=crow, row_ids=lt.row_ids,
-                                shape=(lt.n, lt.n)), torch.float32)]
+                 ("K7 IC(0) strict L jittered f32", *strict["L"], torch.float32)]
     for label, a, csr, dt in k7_cases:
         x = rand(a.shape[1], dtype=dt)
         lib = lib_of(csr, dt)
@@ -705,14 +722,47 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
                     sell_bytes(a.sell, x.element_size()), a.shape[0], w7,
                     planes_plain=lambda: W.wsell_spmv_plain(a, x),
                     info=sell_layout_info(smm, torch, a, wsell_bytes(a, 1, x.element_size())))
-    # K8 at k = 4 (the solves' panel width) and 8, f32
-    lib = lib_of(jit[torch.float32], torch.float32)
-    for k in (4, 8):
-        xs = rand(w32.shape[1], k, dtype=torch.float32)
-        kernel_case(torch, stats, "wsell_spmm", f"K8 jittered f32 k={k}",
-                    lambda: W.wsell_spmm(w32, xs), lambda: W.wsell_spmm_plain(w32, xs),
-                    lambda: lib @ xs, wsell_bytes(w32, k, 4, per_vreg=0), w32.shape[0],
-                    lambda: W.launches["wsell_spmm"], calls=10)
+    # K8, the panel instantiations of the same kernel: k = 4 (phase M's panel
+    # width) first, then 2 and 8 in f32 and 4 in f64, then the IC(0) strict
+    # factors at k = 4 f32 (six of the seven K8 launches per step of phase
+    # M's PCG); each against its plain version bit for bit, the planes'
+    # product, k K7 launches on the columns (bit for bit, timed here too) and
+    # the library's SpMM
+    stats["wsell_spmm_cases"] = []
+    k8_cases = [("jittered", ws[dt], jit[dt], k, dt)
+                for k, dt in ((4, torch.float32), (2, torch.float32), (8, torch.float32),
+                              (4, torch.float64))]
+    k8_cases += [(f"IC(0) strict {f} jittered", a, csr, 4, torch.float32)
+                 for f, (a, csr) in strict.items()]
+    for what, a, csr, k, dt in k8_cases:
+        name = str(dt)[6:]
+        lib = lib_of(csr, dt)
+        xs = rand(a.shape[1], k, dtype=dt)
+        cols = [xs[:, j].contiguous() for j in range(k)]
+        ys = W.wsell_spmm(a, xs)
+        n7 = w7()
+        per_col = [W.wsell_spmv(a, c) for c in cols]
+        torch.cuda.synchronize()
+        require(w7() == n7 + k and all(bits_equal(torch, ys[:, j].contiguous(), per_col[j])
+                                        for j in range(k)),
+                f"K8 {what} {name} k={k}: each column bit for bit a K7 launch", quiet=True)
+        case = kernel_case(torch, stats, "wsell_spmm", f"K8 {what} {name} k={k}",
+                           lambda: W.wsell_spmm(a, xs), lambda: S.sell_spmm_plain(a.sell, xs),
+                           lambda: lib @ xs, sell_bytes(a.sell, xs.element_size(), k=k),
+                           a.shape[0], lambda: W.launches["wsell_spmm"], calls=10,
+                           planes_plain=lambda: W.wsell_spmm_plain(a, xs),
+                           info={"layout_bytes": sell_bytes(a.sell, xs.element_size(),
+                                                            padded=True, k=k),
+                                 "planes_bound_ms": bound_ms(wsell_bytes(a, k, xs.element_size(),
+                                                                         per_vreg=0))})
+        k7_ms = median_ms(lambda: [W.wsell_spmv(a, c) for c in cols], calls=10)
+        print(f"  K8 {what} {name} k={k}: {k} K7 launches on the columns {k7_ms:.4f} ms, "
+              f"K8 {case['ms']:.4f} ms ({k7_ms / case['ms']:.2f}x)")
+        stats["wsell_spmm_cases"].append(dict(case, matrix=what, k=k, dtype=name,
+                                              k7_columns_ms=k7_ms))
+        if "k7_columns_ms" not in stats["wsell_spmm"]:
+            stats["wsell_spmm"]["k7_columns_ms"] = k7_ms
+    del lib, xs, cols, ys, per_col
     # K6 on the ELL layout of the jittered system (K = its longest row)
     for dt, e in ell.items():
         x = rand(e.shape[1], dtype=dt)
@@ -722,7 +772,7 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
                     lambda: lib @ x, sell_bytes(e.sell, x.element_size()), e.shape[0],
                     lambda: E.launches["ell_spmv"], planes_plain=lambda: E.ell_spmv_plain(e, x),
                     info=sell_layout_info(smm, torch, e, ell_bytes(e, x.element_size())))
-    del lib, x, xs
+    del lib, x
 
     # -- the solves: counters at 0 just before, read just after ----------------
     for mod in (K, T, W, E):
@@ -759,14 +809,169 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
     cols = [smm.rmult(w32, xs[:, j].contiguous()) for j in range(4)]
     torch.cuda.synchronize()
     require(W.launches["wsell_spmm"] == n8 + 1 and W.launches["wsell_spmv"] == n7 + 4
-            and all(torch.equal(ys[:, j], cols[j]) for j in range(4)),
-            "rmult(W-SELL, X (n, 4)): one K8 launch, equal to four K7 products", quiet=True)
+            and all(bits_equal(torch, ys[:, j].contiguous(), cols[j]) for j in range(4)),
+            "rmult(W-SELL, X (n, 4)): one K8 launch, bit for bit four K7 products", quiet=True)
+    # ELL panels: one launch of the panel kernel serves up to 8 columns
+    for k in (8, 9):
+        xs = rand(e32.shape[1], k, dtype=torch.float32)
+        n_panel, n6 = E.launches["ell_spmm"], E.launches["ell_spmv"]
+        ys = smm.rmult(e32, xs)
+        cols = [smm.rmult(e32, xs[:, j].contiguous()) for j in range(k)]
+        torch.cuda.synchronize()
+        require(E.launches["ell_spmm"] == n_panel + -(-k // 8)
+                and E.launches["ell_spmv"] == n6 + k
+                and all(bits_equal(torch, ys[:, j].contiguous(), cols[j]) for j in range(k)),
+                f"rmult(ELL, X (n, {k})): {-(-k // 8)} panel launch(es), bit for bit {k} K6 "
+                "products", quiet=True)
+    del xs, ys, cols
     counts = {**W.launches, **E.launches}
     print(f"phase W launches: {counts}; iterations: "
           + ", ".join(f"{k} {r.iterations}" for k, r in res.items()))
     for kname, n in counts.items():
         require(n > 0, f"general path launched {kname} {n} times", quiet=True)
-    return stats, counts
+    return stats, counts, {"jit": jit, "ic": ic}
+
+
+def multi_solve(smm, loop, torch, label, a, b, csr, kw, per_step, singles=None):
+    """``cg_multi`` through the public entry twice (the second timed warm),
+    with every launch counter of the run read: each column's status, the
+    true residual on the host (scipy, per column), K8's launches against the
+    loop's prediction (``per_step`` panel products per step, round and the
+    initial residual, plus the final residual fixes), no K7 launch, and
+    each column against a single-column ``cg`` on the same column.  One
+    printed line per solve; returns the result and the printed numbers."""
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+    from sparse_matrix_math_tpu_torch.solvers import block
+
+    walls = []
+    for _ in range(2):
+        block.reset_loop_counts()
+        n8, n7, syncs0 = W.launches["wsell_spmm"], W.launches["wsell_spmv"], loop.host_syncs["count"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = smm.cg_multi(a, b, **kw)
+        res.residual_norm.tolist()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        k8, k7 = W.launches["wsell_spmm"] - n8, W.launches["wsell_spmv"] - n7
+        syncs = loop.host_syncs["count"] - syncs0
+    c = dict(block.loop_counts)
+    predicted = per_step * (c["steps"] + c["rounds"] + 1) + c["residual_fixes"]
+    status, its = res.status.tolist(), res.iterations.tolist()
+    reported = res.residual_norm.tolist()
+    f64 = b.dtype == torch.float64
+    host = [host_residuals(csr, b[:, j], res.x[:, j]) for j in range(b.shape[1])]
+    print(f"{label}: status {status} iterations {its}; wall {walls[0]:.4f} s then "
+          f"{walls[1]:.4f} s, {1e6 * walls[1] / max(max(its), 1):.1f} us/iteration "
+          f"({1e6 * walls[1] / max(c['steps'], 1):.1f} us per chunk step), "
+          f"{k8} K8 launches per solve (predicted {predicted}: {c}), {k7} K7, {syncs} host "
+          f"syncs; residual_norm {[f'{r:.4e}' for r in reported]} host f64 "
+          f"{[f'{h[0]:.4e}' for h in host]}")
+    require(all(st == smm.SolverStatus.SUCCESS for st in status), f"{label}: every column "
+            "SUCCESS", quiet=True)
+    require(tuple(res.x.shape) == tuple(b.shape) and bool(torch.isfinite(res.x).all()),
+            f"{label}: X finite, shape {tuple(b.shape)}", quiet=True)
+    for j, (r, (true64, same)) in enumerate(zip(reported, host)):
+        ref = true64 if f64 else same
+        require(abs(r - ref) <= 0.01 * ref and (not f64 or true64 <= 1.01 * kw["epsilon"]),
+                f"{label} column {j}: residual_norm {r:.4e} within 1% of the host {ref:.4e}",
+                quiet=True)
+    require(k8 == predicted and k8 > 0 and k7 == 0,
+            f"{label}: {k8} K8 launches, the loop's {predicted}, no K7 launch", quiet=True)
+    out = {"status": status, "iterations": its,
+           "us_per_iteration": 1e6 * walls[1] / max(max(its), 1),
+           "us_per_step": 1e6 * walls[1] / max(c["steps"], 1),
+           "k8_launches": k8, "host_syncs": syncs, "loop": c}
+    if singles is not None:
+        diffs = []
+        for j in range(b.shape[1]):
+            one = singles(b[:, j].contiguous())
+            diffs.append(its[j] - one.iterations)
+            require(one.status == status[j], f"{label} column {j}: status as a single-column "
+                    f"cg ({one.status})", quiet=True)
+            if f64:
+                require(abs(diffs[-1]) <= max(1, 0.01 * one.iterations),
+                        f"{label} column {j}: {its[j]} iterations within max(1, 1%) of a "
+                        f"single-column cg's {one.iterations}", quiet=True)
+        print(f"  {label}: iterations minus a single-column cg's per column: {diffs}")
+        out["iterations_minus_single"] = diffs
+    return res, out
+
+
+def phase_m(smm, loop, torch, dev, wsys):
+    """The multi-RHS path at full width: ``cg_multi`` on the jittered
+    system (laplace_3d_jittered(113)) through W-SELL, m = 4 columns, in f32
+    and f64, plain (one K8 launch per iteration) and with IC(0)(4) in f32
+    (seven: the panel product and six strict-factor products), each column
+    held to the host's residual and to a single-column cg; then ``solve(csr,
+    B, auto_format=True)`` on poisson_2d(1414) in f64 through the grid
+    stencil (no kernel).  Every launch counter is reset just before."""
+    import numpy as np
+
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+    from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+
+    print("== phase M: multi-RHS cg_multi (K8 every iteration) at full width")
+    jit, ic = wsys["jit"], wsys["ic"]
+    m = 4
+
+    def panel(csr, seed):
+        # column j: A x_j / ||A x_j|| for seeded normal x_j (CSR product, no kernel)
+        x = np.random.default_rng(seed).standard_normal((csr.shape[1], m))
+        ax = smm.rmult(csr, torch.as_tensor(x, device=dev).to(csr.dtype))
+        return (ax / torch.linalg.norm(ax, dim=0)).contiguous()
+
+    b = {dt: panel(c, 7) for dt, c in jit.items()}
+    require(all(isinstance(smm.auto_route_for_solve(c), smm.WSellMatrix) for c in jit.values()),
+            "jittered(113) routes to W-SELL (cached from phase W)", quiet=True)
+    for mod in (K, T, W, E):
+        mod.reset_launch_counts()
+    out = {}
+    for dt, eps in ((torch.float32, 1e-4), (torch.float64, 1e-8)):
+        name = str(dt)[6:]
+        kw = dict(epsilon=eps, max_iterations=2000)
+        _, out[f"cg_multi {name}"] = multi_solve(
+            smm, loop, torch, f"cg_multi jittered(113) {name} m={m}", jit[dt], b[dt], jit[dt],
+            kw, 1, singles=lambda col, dt=dt, kw=kw: smm.cg(jit[dt], col, **kw))
+    f32 = torch.float32
+    kw = dict(epsilon=1e-4, max_iterations=2000, preconditioner=ic[f32])
+    _, out["cg_multi+ic0(4) float32"] = multi_solve(
+        smm, loop, torch, f"cg_multi+ic0(4) jittered(113) float32 m={m}", jit[f32], b[f32],
+        jit[f32], kw, 1 + 2 * 3, singles=lambda col: smm.cg(jit[f32], col, **kw))
+
+    # the grid stencil: solve() with a 2-D b and auto_format on a CSR
+    p64 = smm.poisson_2d(1414, dtype=torch.float64, device=dev)
+    bp = panel(p64, 8)
+    n8 = W.launches["wsell_spmm"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = smm.solve(p64, bp, auto_format=True, epsilon=1e-8)
+    res.residual_norm.tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    status, its = res.status.tolist(), res.iterations.tolist()
+    host = [host_residuals(p64, bp[:, j], res.x[:, j])[0] for j in range(m)]
+    print(f"solve(poisson_2d(1414) f64, B (n, {m}), auto_format=True): "
+          f"{type(res).__name__} status {status} iterations {its}; wall {wall:.3f} s (grid "
+          f"stencil selection included), {1e6 * wall / max(max(its), 1):.1f} us/iteration; "
+          f"host f64 "
+          f"residuals {[f'{h:.4e}' for h in host]}")
+    require(isinstance(res, smm.MultiSolveResult) and W.launches["wsell_spmm"] == n8
+            and isinstance(smm.best_format(p64), smm.GridStencilMatrix),
+            "solve(poisson_2d(1414), B, auto_format=True) went through the grid stencil",
+            quiet=True)
+    require(all(st == smm.SolverStatus.SUCCESS for st in status)
+            and all(h <= 1.01e-8 for h in host),
+            "grid stencil cg_multi f64: every column SUCCESS, host residual <= 1e-8", quiet=True)
+    out["solve stencil float64"] = {"status": status, "iterations": its,
+                                    "us_per_iteration": 1e6 * wall / max(max(its), 1)}
+    counts = dict(W.launches)
+    print(f"phase M launches: {counts}")
+    require(counts["wsell_spmm"] > 0, f"multi-RHS path launched K8 {counts['wsell_spmm']} times",
+            quiet=True)
+    return out, counts
 
 
 def df_operator_on_card(smm, torch, dia64):
@@ -1453,7 +1658,9 @@ def main() -> int:
     counts, dia_solves = phase_b(smm, K, _loop, torch, dev)
     cg_f64_its = dia_solves["cg poisson_2d(1414) f64"][0]
     pcounts = phase_p(smm, K, T, _loop, torch, dev)
-    wstats, wcounts = phase_w(smm, _loop, torch, dev, cg_f64_its)
+    wstats, wcounts, wsys = phase_w(smm, _loop, torch, dev, cg_f64_its)
+    mstats, mcounts = phase_m(smm, _loop, torch, dev, wsys)
+    del wsys
     dstats, dcounts = phase_d(smm, _loop, torch, dev)
     rstats, rcounts = phase_r(smm, _loop, torch, dev, dia_solves)
     phase_c(smm, torch, dev)
@@ -1492,8 +1699,19 @@ def main() -> int:
               also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
               layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],
               routed_final_pass=rstats["final_pass"]),
-        entry("wsell_kernel k=2..8 (wsell_spmm)", _WSELL_SOURCE, f"{_WSELL_PALLAS}:165",
-              wcounts["wsell_spmm"], wstats["wsell_spmm"], entry=f"{_WSELL_PALLAS}:287"),
+        # K8: the panel instantiations of the same kernel; ms, bound_ms (the
+        # entries once, X and Y k times) and library_ms at k = 4 f32, every
+        # case in cases; launches are phase M's (cg_multi), launches_per_solve
+        # each solve's, beside the phase W rmult checks' launches (W-SELL and
+        # ELL panels)
+        entry("sell_kernel k=2..8 for wsell_spmm_kernel (wsell_spmm; ELL panels)", _SELL_SOURCE,
+              f"{_WSELL_PALLAS}:165", mcounts["wsell_spmm"], wstats["wsell_spmm"],
+              entry=f"{_WSELL_PALLAS}:287", layout_bytes=wstats["wsell_spmm"]["layout_bytes"],
+              planes_bound_ms=wstats["wsell_spmm"]["planes_bound_ms"],
+              k7_columns_ms=wstats["wsell_spmm"]["k7_columns_ms"],
+              cases=wstats["wsell_spmm_cases"],
+              launches_per_solve={k: v.get("k8_launches", 0) for k, v in mstats.items()},
+              phase_w_launches=wcounts["wsell_spmm"], ell_panel_launches=wcounts["ell_spmm"]),
         entry("dia_padded_df_kernel (dia_spmv_padded_df, dia_spmv_streamed_df)", _DF_SOURCE,
               f"{_PALLAS}:523", dcounts["dia_spmv_padded_df"], dstats,
               also_replaces=f"{_PALLAS}:594", entry=f"{_PALLAS}:560",

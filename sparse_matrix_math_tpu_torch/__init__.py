@@ -7,15 +7,18 @@ Load or build a CSR matrix on a device, then call :func:`solve` (with
 W-SELL, RCM + W-SELL, the routed R-SELL chain, or the CSR itself), or solve
 with :func:`cg`, :func:`bicgstab`, :func:`bicg_symmetric` or :func:`cgs`,
 optionally preconditioned (Jacobi, SGS, IC0, ILU0, Chebyshev), and get a
-:class:`SolveResult` back.  A large CSR matrix on a CUDA device is
+:class:`SolveResult` back; :func:`cg_multi` (or :func:`solve` with a ``b``
+of shape ``(n, m)``) solves m right-hand sides through one loop and returns
+a :class:`MultiSolveResult`.  A large CSR matrix on a CUDA device is
 routed to DIA, else to W-SELL, else (with no preconditioner) through an RCM
 renumbering to W-SELL.  The matvec of a DIA solve is the hand-written kernel
 in ``csrc/dia_spmv.cu`` and its SGS, IC0 or ILU0 apply one call of the fused
 sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, each
 strict-factor product of its preconditioner, and an ELL matrix's product
 are ``csrc/sell_spmv.cu`` over the slab-sorted SELL-32 layout each matrix
-carries (``formats/sell.py``), a W-SELL panel product ``csrc/wsell_spmv.cu``;
-each routing pass of a
+carries (``formats/sell.py``), and so is a W-SELL or ELL panel product (up to
+8 columns per launch, the panel products of :func:`cg_multi`); each routing
+pass of a
 :class:`RoutedMatrix` is ``csrc/stream_gather.cu``.  :func:`cg_df64`,
 :func:`bicgstab_df64`, :func:`cg_ir_df64` and :func:`bicgstab_ir_df64` solve
 with double-word operators (:class:`DfDiaMatrix`, :class:`DfEllMatrix`,
@@ -80,6 +83,7 @@ from .precond import (
 from .solvers import (
     SOLVERS,
     DfSolveResult,
+    MultiSolveResult,
     SolverConfig,
     SolveResult,
     SolverStatus,
@@ -90,6 +94,7 @@ from .solvers import (
     cg,
     cg_df64,
     cg_ir_df64,
+    cg_multi,
     cgs,
     conjugate_gradient,
     conjugate_gradient_squared,
@@ -120,6 +125,7 @@ __all__ = [
     "get_preconditioner", "ChebyshevPreconditioner",
     "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient", "bicg_symmetric",
     "cgs", "conjugate_gradient_squared", "solve", "SolverConfig", "SOLVERS",
+    "cg_multi", "MultiSolveResult",
     "DfSolveResult", "DfDiaMatrix", "DfEllMatrix", "DfGridStencil", "df_from_host", "df_to_host",
     "df_operator_from_host_csr", "cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64",
     "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",

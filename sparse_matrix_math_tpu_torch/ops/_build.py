@@ -24,7 +24,7 @@ __all__ = ["library", "check", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
-                ("dia_spmv.cu", "trisweep.cu", "wsell_spmv.cu", "sell_spmv.cu",
+                ("dia_spmv.cu", "trisweep.cu", "sell_spmv.cu",
                  "dia_spmv_df.cu", "stream_gather.cu"))
 _BUILD_DIR = _PKG / "build"
 _COMPILE_FLAGS = [
@@ -51,13 +51,9 @@ _SIGNATURES = {
     # out, sweeps, n_total, lead, n_rows, stream
     "smm_tri_pair_apply_f32": _APPLY,
     "smm_tri_pair_apply_f64": _APPLY,
-    # vals, meta, base, slab_ptr, x, y, n_slabs, n_rows, n_cols, k, sw_bits,
-    # nway, stream
-    "smm_wsell_spmm_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _I, _P],
-    "smm_wsell_spmm_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _I, _P],
-    # vals, cols, chunk_ptr, row_of, x, y, n_slabs, n_rows, stream
-    "smm_sell_spmv_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _P],
-    "smm_sell_spmv_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _P],
+    # vals, cols, chunk_ptr, row_of, x, y, n_slabs, n_rows, k, stream
+    "smm_sell_spmm_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
+    "smm_sell_spmm_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
     # diags_hi, diags_lo, xh, xl, yh, yl, offsets, ndiags, n_total, lead,
     # n_rows, stream
     "smm_dia_spmv_padded_df": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _P],

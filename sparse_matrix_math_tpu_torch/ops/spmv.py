@@ -6,8 +6,10 @@ reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
 * CSR — gather ``x`` by column, multiply, ``index_add_`` by row.  The JAX
   package computes this in XLA, not in a kernel, so plain torch is its port.
 * DIA — the hand-written kernel :func:`~.dia_spmv.dia_spmv` (K1).
-* ELL — the kernel :func:`~.ell_spmv.ell_spmv` (K6), one launch per column.
-  The JAX package runs XLA here (its Mosaic refuses the kernel's gather).
+* ELL — the kernel :func:`~.ell_spmv.ell_spmv` (K6) for a vector,
+  :func:`~.ell_spmv.ell_spmm` (the panel kernel K8 runs too) for an
+  ``(n, k)`` panel.  The JAX package runs XLA here (its Mosaic refuses the
+  kernel's gather).
 * W-SELL — :func:`~.wsell_spmv.wsell_spmv` (K7) for a vector,
   :func:`~.wsell_spmv.wsell_spmm` (K8) for an ``(n, k)`` panel.
 * R-SELL — one :func:`~.stream_gather.stream_gather` (K11) per routing pass,
@@ -95,9 +97,7 @@ def _rmult_ell(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
     a, x = _promoted(a, x)
     if x.ndim == 1:
         return _ell.ell_spmv(a, x)
-    # several right-hand sides: one kernel launch per column
-    return torch.stack([_ell.ell_spmv(a, x[:, j].contiguous()) for j in range(x.shape[1])],
-                       dim=1)
+    return _ell.ell_spmm(a, x)
 
 
 @rmult.register

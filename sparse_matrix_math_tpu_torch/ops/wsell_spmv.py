@@ -1,16 +1,20 @@
-"""W-SELL SpMV and SpMM: the Hopper kernels and their plain versions.
+"""W-SELL SpMV and SpMM: the Hopper kernels and the planes' plain version.
 
-Port of ``sparse_matrix_math_tpu/ops/pallas_wsell.py``.  Two kernels (each
-header gives its bytes model and design):
+Port of ``sparse_matrix_math_tpu/ops/pallas_wsell.py``.  Both products
+launch ``csrc/sell_spmv.cu`` (``ops/sell_spmv.py``; its header gives the
+bytes model and design) over the matrix's slab-sorted SELL-32 layout
+(``WSellMatrix.sell``), which holds the planes' live products in the order
+below and skips their padding:
 
 * :func:`wsell_spmv` (K7, TPU ``_wsell_kernel`` and ``_wsell_kernel_hbm``)
-  — ``y = A @ x``, ``csrc/sell_spmv.cu`` (``ops/sell_spmv.py``) over the
-  matrix's slab-sorted SELL-32 layout (``WSellMatrix.sell``), which holds
-  the planes' live products in the order below and skips their padding;
+  — ``y = A @ x``, the kernel's K = 1 instantiation;
 * :func:`wsell_spmm` (K8, TPU ``_wsell_spmm_kernel``) — ``Y = A @ X`` for
-  ``X`` of shape ``(n_cols, k)``, ``csrc/wsell_spmv.cu`` over the planes,
-  each slot read once per launch and applied to up to
-  :data:`SPMM_COLUMNS` columns.
+  ``X`` of shape ``(n_cols, k)``, one launch per :data:`SPMM_COLUMNS`
+  columns, each slot read once per launch and applied to every column of
+  the launch; column j equals K7's product of column j bit for bit.
+
+Of the products, only :func:`wsell_spmm_plain` (and :func:`wsell_spmv_plain`)
+reads the W-SELL planes: the planes' product, the tests' oracle.
 
 Per vreg ``v`` and slot ``(p, L)`` (row ``8v + p`` and lane ``L`` of the
 planes), with ``sw_bits = max(3, bitlen(8F - 1))``:
@@ -24,12 +28,12 @@ With ``nway > 1`` the product of position ``p`` lands on sublane
 ``(p + shift) % 8``, ``shift = (m >> (sw_bits + 7)) & 7``: each output
 sublane sums its own shift-0 product, then the rotated ones in rotation
 order, exactly as ``_gather_products`` (pallas_wsell.py:75-86).  The slab's
-rows then add the routed products of its vregs in ascending vreg order.  The
-plain versions follow that order, and the kernels round each product and sum
-alone, so the two agree bit for bit.  The layout's plain version
-(``sell_spmv_plain``) sums the same products in the same order without the
-padding, so it equals :func:`wsell_spmv_plain` bit for bit for finite x, up
-to the sign of a zero sum.
+rows then add the routed products of its vregs in ascending vreg order; the
+planes' plain version follows that order.  The layout's plain version
+(``sell_spmv_plain``, ``sell_spmm_plain``) sums the same products in the same
+order without the padding, so it equals :func:`wsell_spmv_plain` and
+:func:`wsell_spmm_plain` bit for bit for finite x, up to the sign of a zero
+sum.
 
 The TPU's VMEM-resident and HBM-streamed variants (``_VMEM_TABLE_BYTES``,
 ``force_hbm``, :202-262) are one kernel here: x is read through the 50 MB L2.
@@ -47,11 +51,7 @@ from . import sell_spmv as _sell
 __all__ = ["wsell_spmv", "wsell_spmm", "wsell_spmv_plain", "wsell_spmm_plain",
            "launches", "reset_launch_counts", "SPMM_COLUMNS"]
 
-# Columns per K8 launch.  Each thread keeps two output rows' sums of every
-# column of the launch in registers; eight columns of float64 stay inside
-# the register budget of a 512-thread block (the TPU's 8-column cap came
-# from its VMEM budget instead, pallas_wsell.py:278-283).
-SPMM_COLUMNS = 8
+SPMM_COLUMNS = _sell.SPMM_COLUMNS  # columns per K8 launch
 _DTYPES = (torch.float32, torch.float64)
 
 # Kernel launches per wrapper, counted where the kernel is launched.
@@ -127,21 +127,6 @@ def _check(a: WSellMatrix, x: torch.Tensor, ndim: int) -> None:
         raise ValueError("planes and x must be contiguous")
 
 
-def _launch(a: WSellMatrix, x: torch.Tensor, y: torch.Tensor, k: int) -> None:
-    """One K8 launch over row-major x (n_cols, k) into y (n_rows, k)."""
-    from . import _build
-
-    lib = _build.library()
-    fn = lib.smm_wsell_spmm_f32 if x.dtype == torch.float32 else lib.smm_wsell_spmm_f64
-    with torch.cuda.device(x.device):
-        code = fn(a.vals.data_ptr(), a.meta.data_ptr(), a.base.data_ptr(),
-                  a.slab_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), a.n_slabs,
-                  a.shape[0], a.shape[1], k, _sw_bits(a), a.nway,
-                  torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "wsell_spmm")
-    launches["wsell_spmm"] += 1
-
-
 def wsell_spmv(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
     """K7: y = A @ x for a W-SELL matrix and a length-``n_cols`` x."""
     _check(a, x, 1)
@@ -157,15 +142,5 @@ def wsell_spmm(a: WSellMatrix, xs: torch.Tensor) -> torch.Tensor:
     :data:`SPMM_COLUMNS` columns."""
     _check(a, xs, 2)
     if xs.device.type == "cpu":
-        return wsell_spmm_plain(a, xs)
-    k = xs.shape[1]
-    ys = torch.empty((a.shape[0], k), dtype=xs.dtype, device=xs.device)
-    for j0 in range(0, k, SPMM_COLUMNS):
-        kc = min(SPMM_COLUMNS, k - j0)
-        x_part = xs[:, j0:j0 + kc].contiguous()
-        y_part = ys if kc == k else torch.empty((a.shape[0], kc), dtype=xs.dtype,
-                                                device=xs.device)
-        _launch(a, x_part, y_part, kc)
-        if y_part is not ys:
-            ys[:, j0:j0 + kc] = y_part
-    return ys
+        return _sell.sell_spmm_plain(a.sell, xs)
+    return _sell.spmm(a.sell, xs, "wsell_spmm", launches)

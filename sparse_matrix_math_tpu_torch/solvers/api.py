@@ -7,9 +7,12 @@ preconditioner and its options, the format and escalation switches), and
 one-call API for users coming from the reference's ``SolverStatus f(A, b, x,
 ...)`` call sites.
 
+A 2-D ``b`` of shape ``(n, m)`` goes to :func:`~.block.cg_multi` (method
+``cg`` only) and returns a :class:`~.block.MultiSolveResult`.
+
 What :func:`solve` dispatches to in the JAX package and the port does not
 hold yet raises ``NotImplementedError`` naming its ROADMAP item: the methods
-``chebyshev``, ``cg_pipelined`` and ``gmres``, a 2-D ``b`` (``cg_multi``) and
+``chebyshev``, ``cg_pipelined`` and ``gmres`` and
 ``preconditioner="multigrid"`` (Queue 1, the solver tail), and
 ``matrix_dtype`` (``mixed_cg``; Queue 1, the precision variants).  Their names
 stay in :data:`SOLVERS`' error message, so an unknown method still raises
@@ -160,7 +163,8 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
     Returns a ``SolveResult``; a ``DfSolveResult`` for the df64 methods, or
     when ``auto_escalate`` sends a float32 request below its precision floor
-    through the double-word refinement (see :class:`SolverConfig`).
+    through the double-word refinement (see :class:`SolverConfig`); a
+    ``MultiSolveResult`` for a ``b`` of shape ``(n, m)``.
 
     >>> solve(a, b, method="bicgstab", preconditioner="sgs", epsilon=1e-8)
     """
@@ -174,14 +178,6 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             f"{sorted(set(SOLVERS) | set(_NOT_PORTED) | set(_DF64_METHODS))}")
     if method in _DF64_METHODS:
         return _solve_df64(a, b, x0, cfg, method)
-    if getattr(b, "ndim", 1) == 2:
-        raise NotImplementedError(
-            f"a multi-RHS b (n, m) goes to cg_multi (solvers/block.py), which is not ported "
-            f"yet ({_SOLVER_TAIL}); solve each column")
-    if cfg.matrix_dtype is not None:
-        raise NotImplementedError(
-            f"matrix_dtype goes to mixed_cg (solvers/mixed.py), which is not ported yet "
-            f"({_PRECISION_VARIANTS})")
     a_source = a  # preconditioners factor from the CSR source below
     if cfg.auto_format and isinstance(a, CSRMatrix):
         from ..formats import best_format
@@ -196,6 +192,25 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             dia = try_dia_from_csr(a_source)
             if dia is not None:
                 a = dia
+    if getattr(b, "ndim", 1) == 2:
+        # a multi-RHS panel: one panel product feeds every column
+        # (solvers/block.py); returns a MultiSolveResult
+        from .block import cg_multi
+
+        if method not in ("cg", "conjugate_gradient"):
+            raise ValueError("multi-RHS b (n, m) is supported for method='cg' (cg_multi); "
+                             "solve each column separately for other methods")
+        precond = None
+        if not _is_none(cfg.preconditioner):
+            # every preconditioner apply takes the (n, m) panel
+            precond = _build_preconditioner_for(a, a_source, cfg.preconditioner,
+                                                cfg.preconditioner_options)
+        return cg_multi(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                        preconditioner=precond, record_residuals=cfg.record_residuals)
+    if cfg.matrix_dtype is not None:
+        raise NotImplementedError(
+            f"matrix_dtype goes to mixed_cg (solvers/mixed.py), which is not ported yet "
+            f"({_PRECISION_VARIANTS})")
     kwargs: Dict[str, Any] = dict(max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
                                   record_residuals=cfg.record_residuals)
     if not _is_none(cfg.preconditioner):

@@ -7,7 +7,8 @@ package's.
 * ``solve()``: configuration and overrides, the preconditioner strings and
   objects, the df64 methods, ``auto_format`` and its DIA exception, the
   pre-route and the floor escalation (tests/test_floor_escalation.py's cases),
-  and a ``NotImplementedError`` for what the port does not hold yet.  A solve
+  a 2-D ``b`` through ``cg_multi``, and a ``NotImplementedError`` for what the
+  port does not hold yet.  A solve
   is compared with the JAX package's by status, iterations (within 1 in f64
   for CG, the dots sum in another order; within max(3, 5%) for BiCGStab,
   whose counts wander with rounding) and x (1e-8 of max|x| in f64).  A
@@ -36,6 +37,7 @@ from sparse_matrix_math_tpu_torch.precond import PaddedSGS
 from sparse_matrix_math_tpu_torch.precond.cheby_poly import ChebyshevPreconditioner
 from sparse_matrix_math_tpu_torch.solvers import api
 from test_torch_wsell import port_csr
+from torch_layout_code import same_layout_code  # noqa: F401  (an autouse fixture)
 
 S = smm.SolverStatus
 
@@ -184,9 +186,18 @@ def test_not_ported_yet_raises(what, kw):
 
 
 def test_panel_rhs_raises():
-    _, tcsr, b = _system()
-    with pytest.raises(NotImplementedError, match="cg_multi"):
-        smm.solve(tcsr, torch.from_numpy(np.stack([b, b], axis=1)))
+    """A 2-D b goes to cg_multi (it raised before cg_multi was ported): a
+    MultiSolveResult whose columns are the JAX package's; a method other
+    than CG raises the JAX package's ValueError."""
+    jcsr, tcsr, b = _system()
+    panel = np.stack([b, -2.0 * b], axis=1)
+    jres = jsmm.solve(jcsr, jnp.asarray(panel), epsilon=1e-9)
+    tres = smm.solve(tcsr, torch.from_numpy(panel), epsilon=1e-9)
+    assert isinstance(tres, smm.MultiSolveResult) and tres.x.shape == panel.shape
+    for j in range(2):
+        assert_same(tres[j], jres[j])
+    with pytest.raises(ValueError, match="cg_multi"):
+        smm.solve(tcsr, torch.from_numpy(panel), method="bicgstab")
 
 
 # -- preconditioners through the front door -----------------------------------------------

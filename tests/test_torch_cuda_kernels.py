@@ -230,15 +230,18 @@ def test_wsell_kernels_match_plain(cuda_device, name, args, kw, dtype):
     assert W.launches["wsell_spmv"] == before["wsell_spmv"] + 1
     assert bits_equal(y, S.sell_spmv_plain(ws.sell, x))
     assert torch.equal(y, W.wsell_spmv_plain(ws, x))
-    for k in (1, 3, 8, 9):
+    # K8: the panel instantiations of the same kernel, one launch per 8 columns
+    for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 17):
         xs = torch.as_tensor(gen.standard_normal((ws.shape[1], k)), device=cuda_device).to(dtype)
         n0 = W.launches["wsell_spmm"]
         ys = W.wsell_spmm(ws, xs)
         torch.cuda.synchronize()
         assert W.launches["wsell_spmm"] == n0 + -(-k // W.SPMM_COLUMNS)
+        assert bits_equal(ys, S.sell_spmm_plain(ws.sell, xs))
         assert torch.equal(ys, W.wsell_spmm_plain(ws, xs))
-        # each column of K8 is K7's product of that column
-        assert torch.equal(ys[:, 0], W.wsell_spmv(ws, xs[:, 0].contiguous()))
+        # each column of K8 is K7's product of that column, bit for bit
+        for j in range(k):
+            assert bits_equal(ys[:, j].contiguous(), W.wsell_spmv(ws, xs[:, j].contiguous()))
 
 
 def test_wsell_empty_slabs_and_rectangular(cuda_device):
@@ -270,6 +273,35 @@ def test_ell_kernel_matches_plain(cuda_device, name, args, dtype):
     assert torch.equal(y, E.ell_spmv_plain(ell, x))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_ell_panel_kernel_matches_plain(cuda_device, dtype):
+    """ELL panels run the panel kernel over ELL's layout: one launch per 8
+    columns, bit for bit the plain version and the per-column K6 launches."""
+    ell = smm.ell_from_csr(_csr("laplace_3d_jittered", (16,), dtype, cuda_device))
+    gen = np.random.default_rng(3)
+    for k in (2, 4, 8, 9):
+        xs = torch.as_tensor(gen.standard_normal((ell.shape[1], k)), device=cuda_device).to(dtype)
+        n0, n6 = E.launches["ell_spmm"], E.launches["ell_spmv"]
+        ys = smm.rmult(ell, xs)
+        torch.cuda.synchronize()
+        assert E.launches["ell_spmm"] == n0 + -(-k // 8) and E.launches["ell_spmv"] == n6
+        assert bits_equal(ys, S.sell_spmm_plain(ell.sell, xs))
+        for j in range(k):
+            assert bits_equal(ys[:, j].contiguous(), E.ell_spmv(ell, xs[:, j].contiguous()))
+
+
+def test_panel_kernel_takes_an_unaligned_view(cuda_device):
+    """A contiguous X that starts off a 16 B boundary is copied to an
+    aligned one before the launch: the same result."""
+    ws = smm.wsell_from_csr(_csr("laplace_3d_jittered", (16,), torch.float32, cuda_device))
+    n = ws.shape[1]
+    flat = torch.as_tensor(np.random.default_rng(6).standard_normal(4 * n + 1),
+                           device=cuda_device).float()
+    xs = flat[1:].view(n, 4)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    assert bits_equal(W.wsell_spmm(ws, xs), S.sell_spmm_plain(ws.sell, xs))
+
+
 def test_general_wrappers_raise_on_cuda(cuda_device):
     csr = _csr("laplace_3d_jittered", (10,), torch.float64, cuda_device)
     ws, ell = smm.wsell_from_csr(csr), smm.ell_from_csr(csr)
@@ -279,6 +311,12 @@ def test_general_wrappers_raise_on_cuda(cuda_device):
             fn(a, x.float())
         with pytest.raises(ValueError):
             fn(a, x.cpu())
+    xs = torch.ones(csr.shape[1], 3, dtype=torch.float64, device=cuda_device)
+    for fn, a in ((W.wsell_spmm, ws), (E.ell_spmm, ell)):
+        with pytest.raises(TypeError):
+            fn(a, xs.float())
+        with pytest.raises(ValueError):
+            fn(a, xs.cpu())
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
@@ -505,4 +543,41 @@ def test_front_door_solves_match_cpu(cuda_device, method):
     cpu, gpu = res["cpu"], res[str(cuda_device)]
     assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
     assert abs(gpu.iterations - cpu.iterations) <= 3
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
+
+
+# -- the multi-RHS path: cg_multi, K8 every iteration ------------------------------
+
+
+@pytest.mark.parametrize("kind", ["wsell", "ic0", "ell", "stencil"])
+def test_cg_multi_matches_cpu(cuda_device, kind):
+    """f64 multi-RHS solves on the card (K8 or the ELL panel kernel; the
+    grid stencil's plain torch ops) against the CPU (plain versions): the
+    same statuses, iteration counts within 2, x within 1e-6."""
+    from sparse_matrix_math_tpu_torch.solvers import block
+
+    res = {}
+    for dev in ("cpu", cuda_device):
+        if kind == "stencil":
+            csr = smm.poisson_2d(24, dtype=torch.float64, device=dev)
+        else:
+            csr = _csr("laplace_3d_jittered", (16,), torch.float64, dev)
+        b = torch.as_tensor(np.random.default_rng(2).standard_normal((csr.shape[0], 4)),
+                            device=dev)
+        op = {"wsell": smm.try_wsell_from_csr, "ic0": smm.try_wsell_from_csr,
+              "ell": smm.ell_from_csr, "stencil": smm.try_grid_stencil_from_csr}[kind](csr)
+        pre = (smm.IC0Preconditioner.from_matrix(csr, method="jacobi", sweeps=4,
+                                                 strict_layout="wsell")
+               if kind == "ic0" else None)
+        block.reset_loop_counts()
+        n8 = W.launches["wsell_spmm"]
+        res[str(dev)] = smm.cg_multi(op, b, epsilon=1e-8, preconditioner=pre)
+        if dev != "cpu" and kind in ("wsell", "ic0"):
+            c = block.loop_counts
+            per = 7 if kind == "ic0" else 1
+            want = per * (c["steps"] + c["rounds"] + 1) + c["residual_fixes"]
+            assert W.launches["wsell_spmm"] - n8 == want
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status.tolist() == cpu.status.tolist() == [0] * 4
+    assert (gpu.iterations.cpu() - cpu.iterations).abs().max() <= 2
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6

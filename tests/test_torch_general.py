@@ -37,12 +37,8 @@ from sparse_matrix_math_tpu.ops.pallas_spmv import ell_spmv as jax_ell_spmv
 from sparse_matrix_math_tpu.utils import generate as jax_gen
 from sparse_matrix_math_tpu_torch import interop
 from sparse_matrix_math_tpu_torch.formats import reorder
-from test_torch_wsell import (  # noqa: F401  (same_layout_code: an autouse fixture)
-    assert_same_planes,
-    port_csr,
-    same_layout_code,
-    wsell_fields,
-)
+from test_torch_wsell import assert_same_planes, port_csr, wsell_fields
+from torch_layout_code import same_layout_code  # noqa: F401  (an autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 

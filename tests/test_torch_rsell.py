@@ -45,7 +45,8 @@ from sparse_matrix_math_tpu_torch.formats.rsell import (
 )
 from sparse_matrix_math_tpu_torch.ops import stream_gather as S
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
-from test_torch_wsell import jax_native_loaded, port_csr, wsell_fields
+from test_torch_wsell import port_csr, wsell_fields
+from torch_layout_code import jax_native_loaded, same_layout_code  # noqa: F401  (autouse)
 
 REL = {np.float32: 1e-6, np.float64: 1e-12}
 STREAM_NATIVES = ("stream_pack_cf", "sort_perm", "stream_group", "stream_emit", "stream_level")

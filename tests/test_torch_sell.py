@@ -15,6 +15,10 @@
   (``ell_spmv_plain``, ``wsell_spmv_plain``) for finite x: bit for bit for
   W-SELL, and with ``==`` for ELL, whose planes add the padding's
   ``0 * x[0]`` after a row's sum (only the sign of a zero sum can differ).
+  The panel plain version (``sell_spmm_plain``, K8's and ELL panels') equals
+  the per-column ``sell_spmv_plain`` and the planes' ``wsell_spmm_plain`` bit
+  for bit, for k = 1..9 columns, and the ELL planes' per-column product
+  with ``==``.
   Against the JAX package's Pallas kernels in interpret mode: f32 to a
   relative 1e-6 and f64 to 1e-12 of the largest |y| (only the XLA CPU
   backend's rounding differs), as tests/test_torch_wsell.py.
@@ -37,6 +41,7 @@ from sparse_matrix_math_tpu.formats.csr import csr_from_dense as jax_csr_from_de
 from sparse_matrix_math_tpu.formats.ell import ell_from_csr as jax_ell_from_csr
 from sparse_matrix_math_tpu.formats.wsell import wsell_from_csr as jax_wsell_from_csr
 from sparse_matrix_math_tpu.ops.pallas_spmv import ell_spmv as jax_ell_spmv
+from sparse_matrix_math_tpu.ops.pallas_wsell import wsell_spmm as jax_wsell_spmm
 from sparse_matrix_math_tpu.ops.pallas_wsell import wsell_spmv as jax_wsell_spmv
 from sparse_matrix_math_tpu.ops.spmv import rmult as jax_rmult
 from sparse_matrix_math_tpu.utils import generate as jax_gen
@@ -48,9 +53,11 @@ from sparse_matrix_math_tpu_torch.formats.rsell import routed_from_csr
 from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
 from sparse_matrix_math_tpu_torch.ops import sell_spmv as P
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+from sparse_matrix_math_tpu_torch.ops.spmv import rmult
 from sparse_matrix_math_tpu_torch.ops.stream_gather import stream_gather_plain
 from sparse_matrix_math_tpu_torch.precond import IC0Preconditioner
 from test_torch_wsell import _dense, assert_close, port_csr, wsell_fields
+from torch_layout_code import same_layout_code  # noqa: F401  (an autouse fixture)
 
 
 def bits(t: torch.Tensor) -> np.ndarray:
@@ -338,3 +345,68 @@ def test_astype_carries_the_layout():
         assert b.sell.dtype == torch.float32
         assert torch.equal(b.sell.cols, a.sell.cols)
         assert torch.equal(b.sell.vals, a.sell.vals.float())
+
+
+# -- panels: Y = A X (K8, ELL panels) ------------------------------------------------
+
+
+def _ic0_lower(dtype):
+    pre = IC0Preconditioner.from_matrix(port_csr(_jittered(14, dtype)), method="jacobi",
+                                        sweeps=4, strict_layout="wsell")
+    return pre.lower.wsell
+
+
+PANEL_CASES = [
+    ("wsell-nway1", lambda d: wsell_from_csr(port_csr(jax_gen.poisson_2d(48, dtype=d)))),
+    ("wsell-nway2", lambda d: wsell_from_csr(port_csr(_jittered(14, d)), nway=2)),
+    ("wsell-nway4-wf8", lambda d: wsell_from_csr(port_csr(_jittered(14, d, symmetric=False)),
+                                                 nway=4, window_f=8)),
+    ("ic0-strict-L", _ic0_lower),
+    ("ell", lambda d: ell_from_csr(port_csr(_jittered(14, d)))),
+]
+
+
+@pytest.mark.parametrize("k", range(1, 10))
+@pytest.mark.parametrize("name,make", PANEL_CASES, ids=[c[0] for c in PANEL_CASES])
+def test_panel_plain_equals_columns_and_planes(name, make, k, dtype):
+    a = make(dtype)
+    assert a is not None
+    xs = torch.from_numpy(np.random.default_rng(k).standard_normal((a.shape[1], k)).astype(dtype))
+    ys = P.sell_spmm_plain(a.sell, xs)
+    assert ys.shape == (a.shape[0], k) and ys.dtype == a.dtype
+    for j in range(k):
+        np.testing.assert_array_equal(bits(ys[:, j].contiguous()),
+                                      bits(P.sell_spmv_plain(a.sell, xs[:, j].contiguous())))
+    if isinstance(a, ELLMatrix):
+        for j in range(k):
+            assert torch.equal(ys[:, j], E.ell_spmv_plain(a, xs[:, j].contiguous()))
+        wrapped = E.ell_spmm(a, xs)
+    else:
+        np.testing.assert_array_equal(bits(ys), bits(W.wsell_spmm_plain(a, xs)))
+        wrapped = W.wsell_spmm(a, xs)
+    assert torch.equal(wrapped, ys)  # the wrappers run it on CPU tensors
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_panel_matches_jax_interpret(k, dtype):
+    jcsr = _jittered(12, dtype)
+    jws = jax_wsell_from_csr(jcsr, nway=4)
+    tws = interop.wsell_from_numpy(wsell_fields(jws), "cpu")
+    xs = np.random.default_rng(3).standard_normal((jws.shape[1], k)).astype(dtype)
+    ref = jax_wsell_spmm(jws, jnp.asarray(xs), interpret=True)
+    assert_close(P.sell_spmm_plain(tws.sell, torch.from_numpy(xs)).numpy(), ref, dtype)
+
+
+def test_ell_panel_rmult_equals_columns(dtype):
+    """A 2-D rmult of an ELL matrix is one panel product (the panel kernel
+    on a card, its plain version here), equal to its per-column products."""
+    ell = ell_from_csr(port_csr(_jittered(14, dtype)))
+    xs = torch.from_numpy(np.random.default_rng(4).standard_normal((ell.shape[1], 5)).astype(dtype))
+    before = dict(E.launches)
+    ys = rmult(ell, xs)
+    assert E.launches == before
+    for j in range(5):
+        np.testing.assert_array_equal(bits(ys[:, j].contiguous()),
+                                      bits(rmult(ell, xs[:, j].contiguous())))
+    with pytest.raises(ValueError):
+        E.ell_spmm(ell, xs[:, 0].contiguous())

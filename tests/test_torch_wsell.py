@@ -17,7 +17,6 @@ by tests/test_torch_cuda_kernels.py on a card.
 """
 
 import shutil
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +39,7 @@ from sparse_matrix_math_tpu_torch.formats.wsell import _wsell_from_coo
 from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 from sparse_matrix_math_tpu_torch.ops.spmv import rmult
+from torch_layout_code import jax_native_loaded, same_layout_code  # noqa: F401  (autouse)
 
 REL = {np.float32: 1e-6, np.float64: 1e-12}
 
@@ -72,34 +72,6 @@ def assert_close(got, want, dtype):
     want = np.asarray(want)
     scale = max(float(np.abs(want).max(initial=0.0)), 1.0)
     np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=REL[dtype] * scale)
-
-
-def jax_native_loaded(tries: int = 5) -> bool:
-    """Whether the JAX package's native library is loaded, retrying its
-    load.  A JAX process whose first build raced another process's loses the
-    library: the winner's build step deletes the other processes' temporary
-    files, and a failed load is never retried.  The library exists once the
-    winner's build is done, so a fresh load then finds it."""
-    for attempt in range(tries):
-        if jax_native.available():
-            return True
-        jax_native._tried = False
-        time.sleep(0.2 * (attempt + 1))
-    return jax_native.available()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def same_layout_code():
-    """Both packages build W-SELL planes with the same code (the JAX
-    library's load retried, :func:`jax_native_loaded`).  If it still fails,
-    the port takes the NumPy layout code too."""
-    if native.available() == jax_native_loaded():
-        yield
-        return
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("wsell_plan", "wsell_color", "wsell_emit"):
-            mp.setattr(native, name, lambda *a, **k: None)
-        yield
 
 
 @pytest.fixture(params=["native", "numpy"])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time and probe the slab-sorted SELL-32 kernel (K6/K7) on one CUDA card.
+"""Time and probe the slab-sorted SELL-32 kernel (K6/K7, K8) on one CUDA card.
 
     python3 tools/sell_tune.py [m]
 
@@ -10,6 +10,8 @@ each with nvcc, all at once, printing what ptxas reports (registers, spills):
 * variants of the kernel's two constants, ``kUnroll`` (value/column pairs in
   flight per thread) and ``kMinBlocks`` (blocks per SM asked of the
   compiler; patched for float64 only, float32 keeps the shipped value);
+* variants of the panel instantiations (K8, K > 1): rows per block
+  (``kPanelThreads``) and blocks per SM asked of the compiler;
 * a probe: the shipped constants, with each block recording its SM, its
   start and end (``clock64`` and ``%globaltimer``) and the cycle at which
   each of its warps reaches the barrier before the write-back.
@@ -18,6 +20,8 @@ Then, on the W-SELL layout (nway 4) of ``laplace_3d_jittered(m,
 symmetric=True, shift=0.25)`` (m = 113 by default, the general-pattern bench
 system), in float32 and float64:
 
+* times K8 at 2, 4 and 8 columns: the shipped build, each panel variant
+  (bit for bit the shipped result) and as many K7 launches on the columns;
 * times the shipped build (``ops/_build.py``), each variant (held bit for bit
   to the shipped result) and ``torch.sparse_csr_tensor @ x`` (CUDA events,
   ``chip_smoke.median_ms``), and two plain streams of as many bytes as the
@@ -55,6 +59,9 @@ from chip_smoke import median_ms, sell_bytes  # noqa: E402
 _SRC = os.path.join(_ROOT, "sparse_matrix_math_tpu_torch", "csrc", "sell_spmv.cu")
 _OUT = os.path.join(_ROOT, "sparse_matrix_math_tpu_torch", "build", "tune")
 VARIANTS = [(4, 2), (8, 2), (2, 1), (4, 1)]  # (kUnroll, float64 kMinBlocks)
+# panel builds (K > 1): (rows per block, blocks per SM asked of the compiler)
+PANEL_VARIANTS = [(128, 8), (256, 2), (256, 4), (512, 2)]
+PANEL_COLUMNS = (2, 4, 8)
 WARPS_PER_SM = 64  # Hopper: 2048 threads per SM
 STALLS = ("long_scoreboard", "barrier", "lg_throttle", "wait", "drain", "short_scoreboard",
           "not_selected", "selected", "math_pipe_throttle", "mio_throttle", "no_instruction",
@@ -71,10 +78,21 @@ def patch(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
+_BOUNDS = "__launch_bounds__(PanelShape<T, K>::threads, PanelShape<T, K>::min_blocks)"
+
+
 def variant_source(src: str, unroll: int, f64_blocks: int) -> str:
     src = patch(src, "constexpr int kUnroll = 2;", f"constexpr int kUnroll = {unroll};")
-    return patch(src, "__launch_bounds__(kSlab, kMinBlocks)",
-                 f"__launch_bounds__(kSlab, sizeof(T) == 4 ? kMinBlocks : {f64_blocks})")
+    return patch(src, _BOUNDS, "__launch_bounds__(PanelShape<T, K>::threads, K == 1 && "
+                 f"sizeof(T) == 8 ? {f64_blocks} : PanelShape<T, K>::min_blocks)")
+
+
+def panel_source(src: str, threads: int, blocks: int) -> str:
+    """The panel instantiations (K > 1) with ``threads`` rows per block and
+    ``blocks`` blocks per SM asked of the compiler, float32 and float64."""
+    src = patch(src, "constexpr int kPanelThreads = 256;",
+                f"constexpr int kPanelThreads = {threads};")
+    return patch(src, "(sizeof(T) * K > 32 ? 2 : 4)", f"({blocks})")
 
 
 def probe_source(src: str) -> str:
@@ -83,31 +101,31 @@ def probe_source(src: str) -> str:
     ``[8b, 8b + 5)``; warp w's cycles from the block's start to the barrier
     at ``8 * gridDim.x + 32b + w``."""
     src = patch(src, "namespace {\n", "namespace {\n\n__device__ long long* g_probe;\n")
-    src = patch(src, "  __shared__ T ys[kSlab];\n",
-                "  __shared__ T ys[kSlab];\n"
+    src = patch(src, "  __shared__ T ys[K == 1 ? kSlab : 1];\n",
+                "  __shared__ T ys[K == 1 ? kSlab : 1];\n"
                 "  const long long probe_c0 = clock64();\n"
                 "  unsigned long long probe_g0;\n"
                 "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(probe_g0));\n")
-    src = patch(src, "  __syncthreads();\n",
-                "  if (lane == 0)\n"
-                "    g_probe[8LL * gridDim.x + slab * 32 + threadIdx.x / kChunk] ="
+    src = patch(src, "    __syncthreads();\n",
+                "    if (lane == 0)\n"
+                "      g_probe[8LL * gridDim.x + slab * 32 + threadIdx.x / kChunk] ="
                 " clock64() - probe_c0;\n"
-                "  __syncthreads();\n")
-    src = patch(src, "  if (row < n_rows) y[row] = ys[threadIdx.x];\n}\n",
-                "  if (row < n_rows) y[row] = ys[threadIdx.x];\n"
-                "  __syncthreads();\n"
-                "  if (threadIdx.x == 0) {\n"
-                "    unsigned smid;\n"
-                "    unsigned long long g1;\n"
-                "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
-                "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
-                "    long long* r = g_probe + 8 * slab;\n"
-                "    r[0] = smid;\n"
-                "    r[1] = probe_c0;\n"
-                "    r[2] = clock64();\n"
-                "    r[3] = static_cast<long long>(probe_g0);\n"
-                "    r[4] = static_cast<long long>(g1);\n"
-                "  }\n}\n")
+                "    __syncthreads();\n")
+    src = patch(src, "    if (row < n_rows) y[row] = ys[threadIdx.x];\n",
+                "    if (row < n_rows) y[row] = ys[threadIdx.x];\n"
+                "    __syncthreads();\n"
+                "    if (threadIdx.x == 0) {\n"
+                "      unsigned smid;\n"
+                "      unsigned long long g1;\n"
+                "      asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
+                "      asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+                "      long long* r = g_probe + 8 * slab;\n"
+                "      r[0] = smid;\n"
+                "      r[1] = probe_c0;\n"
+                "      r[2] = clock64();\n"
+                "      r[3] = static_cast<long long>(probe_g0);\n"
+                "      r[4] = static_cast<long long>(g1);\n"
+                "    }\n")
     return src + ("\nextern \"C\" int smm_sell_probe_set(void* p) {\n"
                   "  return static_cast<int>(cudaMemcpyToSymbol(g_probe, &p, sizeof(p)));\n}\n")
 
@@ -136,12 +154,48 @@ def build(sources: dict) -> tuple:
                       "spill_store_bytes": [int(s) for s in
                                             re.findall(r"(\d+) bytes spill stores", out)]}
         dll = ctypes.CDLL(lib)
-        for name in ("smm_sell_spmv_f32", "smm_sell_spmv_f64"):
+        for name in ("smm_sell_spmm_f32", "smm_sell_spmm_f64"):
             fn = getattr(dll, name)
-            fn.argtypes = [P, P, P, P, P, P, ctypes.c_int, LL, P]
+            fn.argtypes = [P, P, P, P, P, P, ctypes.c_int, LL, ctypes.c_int, P]
             fn.restype = ctypes.c_int
         libs[key] = dll
     return libs, ptxas
+
+
+def panel_times(torch, W, libs, ws, dt, stream) -> dict:
+    """K8 at k = 2, 4, 8 columns: the shipped build (``wsell_spmm``), each
+    panel variant (held bit for bit to it) and k K7 launches on the columns."""
+    s = ws.sell
+    word = torch.int32 if dt == torch.float32 else torch.int64
+    gen = torch.Generator(device=s.device).manual_seed(1)
+    out = {}
+    for k in PANEL_COLUMNS:
+        xs = (torch.rand(ws.shape[1], k, dtype=dt, device=s.device, generator=gen) - 0.5)
+        cols = [xs[:, j].contiguous() for j in range(k)]
+        ref = W.wsell_spmm(ws, xs)
+        row = {"need_bytes": sell_bytes(s, xs.element_size(), k=k),
+               "shipped_ms": median_ms(lambda: W.wsell_spmm(ws, xs), calls=10),
+               "k7_columns_ms": median_ms(lambda: [W.wsell_spmv(ws, c) for c in cols], calls=10)}
+        for key, dll in libs.items():
+            if not key.startswith("panel_"):
+                continue
+            fn = dll.smm_sell_spmm_f32 if dt == torch.float32 else dll.smm_sell_spmm_f64
+            ys = torch.empty_like(ref)
+
+            def launch(fn=fn, ys=ys):
+                code = fn(s.vals.data_ptr(), s.cols.data_ptr(), s.chunk_ptr.data_ptr(),
+                          s.row_of.data_ptr(), xs.data_ptr(), ys.data_ptr(), s.n_slabs,
+                          s.shape[0], k, stream)
+                if code != 0:
+                    raise RuntimeError(f"CUDA error {code}")
+
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(ys.view(word), ref.view(word)):
+                raise RuntimeError(f"{key} k={k}: not bit for bit the shipped result")
+            row[f"{key}_ms"] = median_ms(launch, calls=10)
+        out[f"k{k}"] = row
+    return out
 
 
 def occupancy(rec, warp_done) -> dict:
@@ -230,6 +284,7 @@ def main() -> int:
         shipped = f.read()
     sources = {f"u{u}_b{b}": variant_source(shipped, u, b) for u, b in VARIANTS}
     sources["probe"] = probe_source(shipped)
+    sources.update({f"panel_t{t}_b{b}": panel_source(shipped, t, b) for t, b in PANEL_VARIANTS})
     libs, ptxas = build(sources)
     probe_lib = libs["probe"]
     probe_lib.smm_sell_probe_set.argtypes = [ctypes.c_void_p]
@@ -263,12 +318,12 @@ def main() -> int:
         del stream_in, half, copy_out
 
         def runner(dll, y):
-            fn = dll.smm_sell_spmv_f32 if dt == torch.float32 else dll.smm_sell_spmv_f64
+            fn = dll.smm_sell_spmm_f32 if dt == torch.float32 else dll.smm_sell_spmm_f64
 
             def launch():
                 code = fn(s.vals.data_ptr(), s.cols.data_ptr(), s.chunk_ptr.data_ptr(),
                           s.row_of.data_ptr(), x.data_ptr(), y.data_ptr(), s.n_slabs,
-                          s.shape[0], stream)
+                          s.shape[0], 1, stream)
                 if code != 0:
                     raise RuntimeError(f"CUDA error {code}")
             return launch
@@ -276,7 +331,10 @@ def main() -> int:
         probe = torch.zeros(40 * s.n_slabs, dtype=torch.int64, device=dev)
         if probe_lib.smm_sell_probe_set(probe.data_ptr()) != 0:
             raise RuntimeError("probe: cudaMemcpyToSymbol failed")
+        row["panel"] = panel_times(torch, W, libs, ws, dt, stream)
         for key, dll in libs.items():
+            if key.startswith("panel_"):
+                continue
             y = torch.empty_like(ref)
             launch = runner(dll, y)
             launch()
