@@ -12,7 +12,9 @@ with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
 PyTorch version on the card, in f32 and f64, at the systems the solve paths
 meet (up to the 243^3 Poisson system, 14.3M rows and 100M nnz), with
 timings: the DIA SpMV kernels, then the fused SGS (K4) and IC(0)/ILU(0) (K5)
-sweep applies at 1, 2 and 4 sweeps.  Phase B resets the launch counters,
+sweep applies at 1, 2 and 4 sweeps, each with the variant the rule of
+``ops/trisweep.py:window_tile`` takes (halo-window kernels or the
+large-reach per-sweep kernels), timed from a captured CUDA graph.  Phase B resets the launch counters,
 then solves at full width through the public entry points on a CUDA
 ``CSRMatrix`` (auto-route to DIA, padded solve, kernel matvec), checks each
 result against an independent host residual computed with scipy, and checks
@@ -212,15 +214,60 @@ def phase_a(smm, K, torch, dev):
 
 
 def apply_bytes(pre, sgs: bool, itemsize: int) -> int:
-    """Device bytes of one apply by the kernels' traffic model: per
-    direction the init step reads the rhs and the inverse diagonal and
-    writes x, and each of the sweeps - 1 sweeps reads the strict diagonals,
-    the rhs, the inverse diagonal and x and writes x; SGS's middle scale also
-    reads D and writes the scaled rhs."""
-    per_row = 2 if sgs else 0
-    for p in (pre.p_lower, pre.p_upper):
-        per_row += 3 + (0 if p is None else (pre.sweeps - 1) * (len(p.offsets) + 4))
+    """Device bytes one apply must move, each input read once and the
+    output written once: r, the inverse diagonal (one for SGS, two for a
+    factor pair), D (SGS), the strict L and U diagonals, and z."""
+    nd = sum(0 if p is None else len(p.offsets) for p in (pre.p_lower, pre.p_upper))
+    return (nd + 4) * pre.shape[0] * itemsize
+
+
+def traffic_bytes(pre, sgs: bool, itemsize: int, variant: str) -> int:
+    """Device bytes one apply moves by a design's traffic model.  The
+    per-sweep kernels (the large-reach variant, and K4/K5 before the window
+    kernels): per direction the init step reads the rhs and the inverse
+    diagonal and writes x, and each of the sweeps - 1 sweeps reads the
+    strict diagonals, the rhs, the inverse diagonal and x and writes x;
+    SGS's middle scale also reads D and writes the scaled rhs.  The window
+    kernels: per direction the rhs, the inverse diagonal, the strict
+    diagonals (where there is a sweep) and, backward in SGS, D are read once
+    and x is written once; the forward result is read back by the backward
+    launch (halo rows read again by a neighbouring tile not counted)."""
+    per_row = 0
+    for p, mid in ((pre.p_lower, False), (pre.p_upper, sgs)):
+        nd = 0 if p is None else len(p.offsets)
+        if variant == "window":
+            per_row += 3 + (nd if nd and pre.sweeps > 1 else 0) + mid
+        else:
+            per_row += 3 + 2 * mid + (0 if p is None else (pre.sweeps - 1) * (nd + 4))
     return per_row * pre.shape[0] * itemsize
+
+
+def graph_ms(torch, fn, calls: int = 20, samples: int = 5) -> float:
+    """Median over ``samples`` replays of a CUDA graph that captured
+    ``calls`` calls of ``fn``, per call: the kernels' own time, without the
+    host's dispatch between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: builds, opts in to shared memory, fills the allocator
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
 
 
 def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
@@ -274,17 +321,27 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
                         f"{tag}: guard rows exactly 0")
                 require(T.launches[kname] == before + 1, f"{tag}: launch counter rose")
                 stats[kname]["err"] = max(stats[kname]["err"], abs_err)
+                variant = T.variant(pre, dev)
+                stats[kname].setdefault("variants", {})[f"{label} {kind} {name} "
+                                                         f"sweeps={sweeps}"] = variant
                 if sweeps != 4:
                     continue  # timed at the main path's sweep count
-                ms = median_ms(lambda: fused(pre, rp), samples=5, calls=10)
+                sgs = kname == "sgs_apply"
+                ms = graph_ms(torch, lambda: fused(pre, rp))
+                wrapper_ms = median_ms(lambda: fused(pre, rp), samples=5, calls=10)
                 plain_ms = median_ms(lambda: plain(pre, rp), samples=5, calls=10)
-                nbytes = apply_bytes(pre, kname == "sgs_apply", rp.element_size())
-                print(f"  {tag}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-                      f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)")
+                nbytes = apply_bytes(pre, sgs, rp.element_size())
+                moved = traffic_bytes(pre, sgs, rp.element_size(), variant)
+                b_ms = bound_ms(nbytes)
+                print(f"  {tag}: {variant} kernels {ms:.4f} ms from a CUDA graph "
+                      f"({100 * b_ms / ms:.0f}% of the {b_ms:.4f} ms bound, {nbytes / 1e6:.0f} "
+                      f"MB; the design's traffic {moved / 1e6:.0f} MB, {moved / ms / 1e6:.1f} "
+                      f"GB/s), through the wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms")
                 if label == "poisson_2d(1414)" and name == "float32" and kind != "ilu0":
                     # no single PyTorch call computes a Jacobi-sweep apply
-                    stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
-                                        library_ms=None)
+                    stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                        library_ms=None, wrapper_ms=wrapper_ms,
+                                        traffic_bound_ms=bound_ms(moved))
             del base, rp, z, z_ref
         del pre64
 
@@ -1682,12 +1739,22 @@ def main() -> int:
               also_replaces=f"{_PALLAS}:281"),
         entry("dia_kernel (dia_spmv)", _SOURCE, f"{_PALLAS}:91", counts["dia_spmv"],
               stats["dia_spmv"]),
-        entry("sgs_apply (smm_sgs_apply_*: scale_kernel + sweep_kernel)", _TRI_SOURCE,
+        # K4/K5: ms from a CUDA graph of 20 applies (wrapper_ms through the
+        # wrapper), bound_ms each input read once and z written once,
+        # traffic_bound_ms the variant's own traffic; variants: what the rule
+        # of ops/trisweep.py window_tile took on each phase-A case
+        entry("sgs_apply (smm_sgs_apply_*: window_kernel forward + backward with D; large "
+              "reach: scale_kernel + sweep_kernel)", _TRI_SOURCE,
               f"{_TRI_PALLAS}:54", pcounts["sgs_apply"], stats["sgs_apply"],
-              entry=f"{_TRI_PALLAS}:168"),
-        entry("tri_pair_apply (smm_tri_pair_apply_*: scale_kernel + sweep_kernel)", _TRI_SOURCE,
+              entry=f"{_TRI_PALLAS}:168", wrapper_ms=stats["sgs_apply"]["wrapper_ms"],
+              traffic_bound_ms=stats["sgs_apply"]["traffic_bound_ms"],
+              variants=stats["sgs_apply"]["variants"]),
+        entry("tri_pair_apply (smm_tri_pair_apply_*: window_kernel forward + backward; large "
+              "reach: scale_kernel + sweep_kernel)", _TRI_SOURCE,
               f"{_TRI_PALLAS}:54", pcounts["tri_pair_apply"], stats["tri_pair_apply"],
-              entry=f"{_TRI_PALLAS}:243"),
+              entry=f"{_TRI_PALLAS}:243", wrapper_ms=stats["tri_pair_apply"]["wrapper_ms"],
+              traffic_bound_ms=stats["tri_pair_apply"]["traffic_bound_ms"],
+              variants=stats["tri_pair_apply"]["variants"]),
         # K6 and K7 are one kernel over the slab-sorted SELL-32 layout; bound_ms
         # counts the stored entries, layout_bytes the layout's slots (padding
         # too), planes_bound_ms the planes' ELL / W-SELL model

@@ -11,26 +11,58 @@
 //
 //   forward : x_0 = r * invd_l ;  x_{s+1} = (r - sum_d L_d[e] x_s[e+off_d]) * invd_l
 //   middle  : rhs2 = diag * x    (SGS)   |   rhs2 = x   (IC0 / ILU0 pair)
-//   backward: y_0 = rhs2 * invd_u ; y_{s+1} = (rhs2 - sum_d U_d[e] y_s[e+off_d]) * invd_u
+//   backward: y_0 = rhs2 * invd_u ; y_{s+1} = (rhs2 - U y_s) * invd_u
 //
 // with sweeps-1 sweeps in each direction.  For SGS invd_u == invd_l; for an
 // ILU0 pair invd_l is 1 on data rows (unit L).  An empty strict part is a
 // pure diagonal scale.
 //
-// Design: one thread per padded element and one launch per step, 2*sweeps
-// launches per apply on the caller's stream.  A sweep reads neighbours up to
-// max|offset| rows away that other blocks write in the previous sweep, so
-// the launch boundary is the grid-wide barrier.  The TPU kernel instead ran
-// every sweep inside one grid step over halo-deepened VMEM windows
-// (pallas_trisweep.py:188-193) fed by double-buffered DMA (:87-132); fusing
-// the sweeps of one apply into a single launch (cooperative grid sync, or
-// shared-memory halo tiles) is left for later work.
+// What bounds it: device-memory bytes.  An apply must read r, the inverse
+// diagonal(s), D (SGS) and the strict diagonals once and write z once; at
+// poisson_2d(1414) float32 that is 64 MB, 0.019 ms at 3.35 TB/s.
 //
-// What bounds it: device-memory bytes.  A sweep reads the strict diagonals,
-// the rhs, the inverse diagonal and x, and writes x: about
-// (nd_strict + 4) * itemsize per row, the shifted reads of x hitting in L2.
-// The init step reads r (and diag) and the inverse diagonal and writes one
-// or two vectors.
+// Design: halo windows ("temporal blocking"), one launch per direction,
+// window_kernel.  The windows are one-sided: L's offsets are negative, so
+// forward sweep s+1 of row e reads only rows below e; U's are positive, so
+// the backward sweeps read only rows above.  Each CTA (one per SM) owns a
+// tile of `tile` consecutive padded rows and walks its window
+// [tile_start - (levels - 1) * reach, tile_end) (mirrored upward for the
+// backward launch) in chunks of kChunk rows, in the direction of the
+// dependences.  A chunk's operands (rhs, inverse diagonal, D, strict
+// diagonals) are read from device memory once, by 16-byte cp.async copies
+// into a staging ring kStages chunks deep, and serve every level (x_0 ..
+// x_{levels-1}) of the chunk.  Level k of a row reads level k-1 of rows up
+// to `reach` behind it, so each level but the last keeps a ring of
+// reach + kChunk rows in shared memory; the last level is written to
+// device memory, on the tile's rows only.  Level k runs on the chunks its
+// dependence cone (rows from tile_start - (levels-1-k) * reach) reaches, so
+// the rows of the tile depend on nothing outside the window; a row of such
+// a chunk outside the cone leaves a ring value no row of the cone reads.
+// A __syncthreads() follows each level of a chunk.  The halo rows are read
+// again by the neighbouring CTAs, mostly from L2: at poisson_2d(1414) a tile
+// is 15,360 rows and the halo at sweeps 4 4,242.  Shared memory holds only
+// the rings and the staging, independent of the tile.  With 1-4 strict
+// diagonals (every 2-D stencil, the 3-D 7-point one) the kernel is
+// instantiated for the count, the offsets and each chunk's coefficients
+// held in registers across the levels.  The TPU kernel ran every sweep
+// inside one grid step over halo-deepened VMEM windows too
+// (pallas_trisweep.py:188-193), two-sided and with a margin; this one is
+// one-sided and walks the window as a stream.
+//
+// Which variant runs is the caller's explicit rule (ops/trisweep.py
+// window_tile): the window kernels when each direction's rings and staging
+// fit the 227 KB of shared memory a block may use and the halo
+// (levels - 1) * reach is shorter than two tiles (tile = the chunks of the
+// layout split over the card's SMs; every CTA sweeps its halo again); else
+// the large-reach variant, one launch per step (scale_kernel, then
+// sweep_kernel once per sweep, 2 * sweeps launches per apply), whose
+// iterates go through device memory (poisson_3d(243),
+// poisson_3d_27pt(128), and poisson_3d(40) at sweeps 4).  One cooperative launch per
+// direction with a grid barrier between sweeps measured 5-13% slower there
+// on three of four cases and 2.5% faster on the fourth on an H100, so the
+// per-sweep kernels stay.  The split is not a fallback on failure: a
+// refused launch still returns its error.
+// tile == 0 asks for the large-reach variant.
 //
 // Exactness: every product, sum and difference is rounded on its own
 // (__fmul_rn / __fadd_rn / __fsub_rn and the __d* forms; no FMA
@@ -38,18 +70,29 @@
 // then subtracted from the rhs, then scaled by the inverse diagonal; SGS's
 // middle is diag * x, then * invd_u, as two roundings.  The plain PyTorch
 // versions in ops/trisweep.py do the same operations in the same order, so
-// kernel and plain version agree bit for bit.
+// kernel and plain version agree bit for bit, in both variants.
 //
 // Guards: rows outside [lead, lead + n_rows) write an exact 0 and read
 // nothing.  The shared geometry's guards cover max|offset| on both sides,
-// so every read of a data row stays in bounds.  Index math is 64-bit.
+// so every read of a data row stays in bounds.  Index math is 64-bit, and
+// 32-bit inside a window kernel's window, which the C entry bounds.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxDiags = 64;  // DIA's max_diags, as in dia_spmv.cu
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the large-reach variant's blocks
+constexpr int kChunk = 1024;   // rows per chunk of the window kernels
+// threads per window CTA, kChunk / threads rows each (512 measured 4-6%
+// slower in float32 and the same in float64 on an H100)
+constexpr int kWindowThreads = 256;
+constexpr int kRowsPerThread = kChunk / kWindowThreads;
+constexpr int kStages = 3;     // chunks of operands in flight per CTA
+// dynamic shared memory of a window CTA: the 227 KB one block may use, less
+// the kernel's static copy of the offsets
+constexpr int kSmemMax = 232448 - kMaxDiags * static_cast<int>(sizeof(int));
+static_assert(kChunk % kWindowThreads == 0 && kRowsPerThread <= 8, "window threads");
 
 struct Offsets {
   int v[kMaxDiags];
@@ -61,6 +104,241 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// cp.async of kRowsPerThread consecutive elements into shared memory: 16-byte
+// copies through L2 only, or one 4- or 8-byte copy through L1.  Both
+// addresses are aligned to the copy (the C entry checks the vectors).
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* smem, const T* gmem) {
+  constexpr int kBytes = kRowsPerThread * static_cast<int>(sizeof(T));
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int b = 0; b < kBytes; b += 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s + b),
+                   "l"(reinterpret_cast<const char*>(gmem) + b));
+    }
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+                 "n"(kBytes));
+  }
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// -- the window kernel: one direction of an apply ------------------------------
+
+// Rows of one level's ring: the reach behind a chunk, in whole chunks, and
+// the chunk itself.  ops/trisweep.py:ring_rows is the same formula.
+__host__ __device__ inline int ring_rows(int reach) {
+  return ((reach + kChunk - 1) / kChunk + 1) * kChunk;
+}
+
+__device__ __forceinline__ long long clamp_ll(long long v, long long lo, long long hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// One direction (kForward: rows ascending, offsets < 0; else descending,
+// offsets > 0) over the tile blockIdx.x.  kMid: the rhs is mid * src (SGS's
+// middle scale, fused into the backward init).  ND > 0: exactly ND strict
+// diagonals, their offsets and each chunk's coefficients held in
+// registers; ND == 0: nd of them, read from shared memory.  Shared memory:
+// levels - 1 rings of ring_rows elements, then kStages staging slots of
+// nv * kChunk elements (rhs, inverse diagonal, [mid], and the strict
+// diagonals when there is a sweep).  A thread copies kRowsPerThread
+// consecutive rows of each operand and computes the rows
+// tid + i * kWindowThreads, so that neighbouring threads read neighbouring
+// words of the rings; the barrier after the copies' wait makes each
+// chunk's staging visible to all.  A level runs on every chunk its cone
+// reaches and computes all the chunk's rows: a row outside the cone reads
+// stale ring rows and leaves a value no row of the cone reads, and only
+// the tile's rows are written out.  Row indices inside the kernel are
+// 32-bit, relative to the window's first chunk (the window is at most a
+// tile and a halo long).
+template <typename T, bool kForward, bool kMid, int ND>
+__global__ void __launch_bounds__(kWindowThreads, 1)
+window_kernel(const T* src, const T* __restrict__ mid, const T* __restrict__ invd,
+              const T* __restrict__ diags, const Offsets offs, int nd, T* __restrict__ out,
+              int levels, int reach, long long tile, long long n_total, long long lead,
+              long long n_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_off[kMaxDiags];
+  constexpr int kFixed = kMid ? 3 : 2;
+  constexpr int R = kRowsPerThread;
+  constexpr int W = kWindowThreads;
+  const int tid = threadIdx.x;
+  const int rows = levels > 1 ? ring_rows(reach) : kChunk;
+  const int nds = levels > 1 ? (ND > 0 ? ND : nd) : 0;  // diagonals staged
+  const int nv = kFixed + nds;
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* stage = ring + (levels - 1) * rows;
+  int off[ND > 0 ? ND : 1];
+  if constexpr (ND > 0) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) off[d] = offs.v[d];
+  } else {
+    for (int d = tid; d < nds; d += W) s_off[d] = offs.v[d];
+  }
+
+  // the window [w_lo, w_hi) and its first chunk `base`, in 64-bit once
+  const long long seg0 = static_cast<long long>(blockIdx.x) * tile;
+  const long long seg1 = seg0 + tile < n_total ? seg0 + tile : n_total;
+  const long long halo = static_cast<long long>(levels - 1) * reach;
+  const long long w_lo = kForward ? (seg0 - halo > 0 ? seg0 - halo : 0) : seg0;
+  const long long w_hi = kForward ? seg1 : (seg1 + halo < n_total ? seg1 + halo : n_total);
+  const long long base = w_lo / kChunk * kChunk;
+  const int nchunks = static_cast<int>((w_hi - base + kChunk - 1) / kChunk);
+  const int span = nchunks * kChunk;
+  // relative bounds: the tile, the window's data rows, the levels' cones
+  const int t_lo = static_cast<int>(seg0 - base);
+  const int t_hi = static_cast<int>(seg1 - base);
+  const int d_lo = static_cast<int>(clamp_ll(lead > w_lo ? lead - base : w_lo - base, 0, span));
+  const long long end = lead + n_rows < w_hi ? lead + n_rows : w_hi;
+  const int d_hi = static_cast<int>(clamp_ll(end - base, 0, span));
+  const int r_hi = static_cast<int>(clamp_ll(n_total - base, 0, span));  // last row + 1
+  // level k's cone is the relative rows [lo(k), hi(k))
+  auto lo = [&](int k) { return kForward ? t_lo - (levels - 1 - k) * reach : t_lo; };
+  auto hi = [&](int k) {
+    if (kForward) return t_hi;
+    const int h = t_hi + (levels - 1 - k) * reach;
+    return h < r_hi ? h : r_hi;
+  };
+  const T* src_b = src + base;
+  const T* invd_b = invd + base;
+  const T* mid_b = kMid ? mid + base : nullptr;
+  const T* diags_b = diags + base;
+  T* out_b = out + base;
+  const int lo1 = levels > 1 ? lo(1) : 0;
+  const int hi1 = levels > 1 ? hi(1) : 0;
+  __syncthreads();  // s_off
+
+  auto load = [&](int j, int slot) {
+    if (j >= nchunks) return;
+    const int c0 = (kForward ? j : nchunks - 1 - j) * kChunk;
+    const int g = c0 + tid * R;  // this thread's rows g .. g + R - 1
+    if (g + R <= d_lo || g >= d_hi) return;
+    T* st = stage + slot * nv * kChunk + tid * R;
+    copy_rows(st, src_b + g);
+    copy_rows(st + kChunk, invd_b + g);
+    if (kMid) copy_rows(st + 2 * kChunk, mid_b + g);
+    // the strict diagonals only where a sweep level reaches the chunk
+    if (nds > 0 && (kForward ? c0 + kChunk > lo1 : c0 < hi1)) {
+      const T* dp = diags_b + g;
+      for (int d = 0; d < nds; ++d, dp += n_total) copy_rows(st + (kFixed + d) * kChunk, dp);
+    }
+  };
+
+  int lslot = 0;
+  for (int s = 0; s < kStages - 1; ++s) {
+    load(s, lslot);
+    copy_commit();
+    lslot = lslot + 1 == kStages ? 0 : lslot + 1;
+  }
+  const int ring_chunks = rows / kChunk;
+  int p0 = levels > 1 ? static_cast<int>((base / kChunk + (kForward ? 0 : nchunks - 1)) %
+                                         ring_chunks) * kChunk
+                      : 0;
+  int slot = 0;
+  for (int j = 0; j < nchunks; ++j) {
+    load(j + kStages - 1, lslot);
+    copy_commit();
+    lslot = lslot + 1 == kStages ? 0 : lslot + 1;
+    copy_wait<kStages - 1>();  // this thread's copies of chunk j have landed
+    __syncthreads();           // and every other thread's
+    const int c0 = (kForward ? j : nchunks - 1 - j) * kChunk;
+    const T* st = stage + slot * nv * kChunk + tid;
+    T rhs[R], inv[R];
+    bool data[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = c0 + tid + i * W;
+      data[i] = r >= d_lo && r < d_hi;
+      rhs[i] = T(0);
+      inv[i] = T(0);
+      if (data[i]) {
+        rhs[i] = kMid ? mul_rn(st[2 * kChunk + i * W], st[i * W]) : st[i * W];
+        inv[i] = st[kChunk + i * W];
+      }
+    }
+    // ND > 0: the chunk's coefficients, once for every level
+    T coef[ND > 0 ? ND : 1][R];
+    if constexpr (ND > 0) {
+      if (levels > 1 && (kForward ? c0 + kChunk > lo1 : c0 < hi1)) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) coef[d][i] = st[(kFixed + d) * kChunk + i * W];
+        }
+      }
+    }
+    for (int k = 0; k < levels; ++k) {
+      const int l = lo(k), h = hi(k);
+      if (c0 + kChunk <= l || c0 >= h) continue;  // uniform over the block
+      T v[R];
+      if (k == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) v[i] = data[i] ? mul_rn(rhs[i], inv[i]) : T(0);
+      } else {
+        // prev[q] is level k-1 at ring position tid + q
+        const T* prev = ring + (k - 1) * rows + tid;
+        T acc[R];
+        auto term = [&](int d, int i, int o, T c) {
+          int q = p0 + i * W + o;
+          if (kForward) {
+            q = q < -tid ? q + rows : q;
+          } else {
+            q = q + tid >= rows ? q - rows : q;
+          }
+          const T t = mul_rn(c, prev[q]);
+          acc[i] = d == 0 ? t : add_rn(acc[i], t);
+        };
+        if constexpr (ND > 0) {
+#pragma unroll
+          for (int d = 0; d < ND; ++d) {
+#pragma unroll
+            for (int i = 0; i < R; ++i) term(d, i, off[d], coef[d][i]);
+          }
+        } else {
+          for (int d = 0; d < nds; ++d) {
+            const int o = s_off[d];
+            const T* cf = st + (kFixed + d) * kChunk;
+#pragma unroll
+            for (int i = 0; i < R; ++i) term(d, i, o, cf[i * W]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          v[i] = data[i] ? mul_rn(sub_rn(rhs[i], acc[i]), inv[i]) : T(0);
+        }
+      }
+      if (k == levels - 1) {
+        // the tile's rows: its first row starts a chunk, its end may not
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int r = c0 + tid + i * W;
+          if (r < h) out_b[r] = v[i];
+        }
+      } else {
+        T* cur = ring + k * rows + p0 + tid;
+#pragma unroll
+        for (int i = 0; i < R; ++i) cur[i * W] = v[i];
+      }
+      __syncthreads();
+    }
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+    if (kForward) {
+      p0 = p0 + kChunk == rows ? 0 : p0 + kChunk;
+    } else {
+      p0 = p0 == 0 ? rows - kChunk : p0 - kChunk;
+    }
+  }
+  copy_wait<0>();
+}
+
+// -- the large-reach variant: one launch per step ------------------------------
 
 // Init step of one direction: v = src (times mid, when mid is given);
 // rhs2[e] = v when rhs2 is given; out[e] = v * invd.  src and rhs2 may be
@@ -118,12 +396,13 @@ unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-// One direction: the init step writes `first`, then each of the sweeps-1
-// sweeps (none when the strict part is empty) writes the other buffer of
-// the pair.  *result is the buffer holding the last write.
+// One direction of the large-reach variant: the init step writes `first`,
+// then each of the sweeps-1 sweeps (none when the strict part is empty)
+// writes the other buffer of the pair.  *result is the buffer holding the
+// last write.
 template <typename T>
 int direction(const T* src, const T* mid, const T* invd, T* rhs2_out, const T* diags,
-              const void* offsets, int ndiags, int sweeps, T* first, T* second,
+              const Offsets& offs, int ndiags, int sweeps, T* first, T* second,
               long long n_total, long long lead, long long n_rows, cudaStream_t stream,
               T** result) {
   const unsigned int grid = blocks_for(n_total);
@@ -136,7 +415,6 @@ int direction(const T* src, const T* mid, const T* invd, T* rhs2_out, const T* d
   T* cur = first;
   T* nxt = second;
   if (ndiags > 0) {
-    const Offsets offs = load_offsets(offsets, ndiags);
     for (int s = 1; s < sweeps; ++s) {
       sweep_kernel<T><<<grid, kThreads, 0, stream>>>(diags, offs, ndiags, rhs, invd, cur, nxt,
                                                      n_total, lead, n_rows);
@@ -151,31 +429,137 @@ int direction(const T* src, const T* mid, const T* invd, T* rhs2_out, const T* d
   return 0;
 }
 
-// The whole apply.  w0 and w1 are scratch vectors of n_total elements and
-// out receives z; none of them may alias r or each other.  mid is the SGS
-// diagonal, or null for a factor pair.
+// -- launching -----------------------------------------------------------------
+
+// max |offset|, and whether every offset has the direction's sign.
+bool reach_of(const Offsets& offs, int nd, bool forward, int* reach) {
+  int r = 0;
+  for (int d = 0; d < nd; ++d) {
+    const int o = offs.v[d];
+    if (forward ? o >= 0 : o <= 0) return false;
+    r = o < 0 ? (-o > r ? -o : r) : (o > r ? o : r);
+  }
+  *reach = r;
+  return true;
+}
+
+// One direction through the window kernel, on tiles of `tile` rows, at
+// one instantiation of the strict diagonals' count.
+template <typename T, bool kForward, bool kMid, int ND>
+int window_launch(const T* src, const T* mid, const T* invd, const T* diags,
+                  const Offsets& offs, int nd, T* out, int levels, int reach, long long smem,
+                  long long tile, long long n_total, long long lead, long long n_rows,
+                  cudaStream_t stream) {
+  // the opt-in to more than 48 KB of dynamic shared memory, once per device
+  static bool opted_in[64] = {};
+  int dev = 0;
+  int code = static_cast<int>(cudaGetDevice(&dev));
+  if (code != 0) return code;
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev]) {
+    code = static_cast<int>(cudaFuncSetAttribute(window_kernel<T, kForward, kMid, ND>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kSmemMax));
+    if (code != 0) return code;
+    opted_in[dev] = true;
+  }
+  const unsigned int grid = static_cast<unsigned int>((n_total + tile - 1) / tile);
+  window_kernel<T, kForward, kMid, ND><<<grid, kWindowThreads, smem, stream>>>(
+      src, mid, invd, diags, offs, nd, out, levels, reach, tile, n_total, lead, n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One direction through the window kernel: checks, then the instantiation
+// for 1-4 strict diagonals under a sweep, or the general one.
+template <typename T, bool kForward, bool kMid>
+int window_direction(const T* src, const T* mid, const T* invd, const T* diags,
+                     const Offsets& offs, int nd, T* out, int sweeps, long long tile,
+                     long long n_total, long long lead, long long n_rows,
+                     cudaStream_t stream) {
+  const int levels = nd > 0 ? sweeps : 1;
+  int reach = 0;
+  if (!reach_of(offs, nd, kForward, &reach)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = levels > 1 ? ring_rows(reach) : 0;
+  const long long nv = (kMid ? 3 : 2) + (levels > 1 ? nd : 0);
+  const long long smem =
+      static_cast<long long>(sizeof(T)) * ((levels - 1) * rows + kStages * nv * kChunk);
+  // the window (a tile and its halo) indexed in 32 bits
+  if (smem > kSmemMax || tile + (levels - 1) * static_cast<long long>(reach) + kChunk >
+                             (1LL << 31) - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the 16-byte copies need every vector they read aligned to 16 bytes
+  // (rows of the diagonals lie n_total elements apart, a multiple of 128)
+  const unsigned long long addr_bits = reinterpret_cast<unsigned long long>(src) |
+                                       reinterpret_cast<unsigned long long>(mid) |
+                                       reinterpret_cast<unsigned long long>(invd) |
+                                       reinterpret_cast<unsigned long long>(diags);
+  if (addr_bits % 16 != 0 || n_total % 128 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+#define SMM_WINDOW(ND)                                                                   \
+  window_launch<T, kForward, kMid, ND>(src, mid, invd, diags, offs, nd, out, levels, reach, \
+                                       smem, tile, n_total, lead, n_rows, stream)
+  switch (levels > 1 ? nd : 0) {
+    case 1:
+      return SMM_WINDOW(1);
+    case 2:
+      return SMM_WINDOW(2);
+    case 3:
+      return SMM_WINDOW(3);
+    case 4:
+      return SMM_WINDOW(4);
+    default:
+      return SMM_WINDOW(0);
+  }
+#undef SMM_WINDOW
+}
+
+// The whole apply.  w0 and w1 are scratch vectors of n_total elements (the
+// window variant uses w0 alone) and out receives z; none of them may alias
+// r or each other.  mid is the SGS diagonal, or null for a factor pair.
+// tile > 0: the window kernels on tiles of `tile` rows (a multiple of
+// kChunk); tile == 0: the large-reach variant.
 template <typename T>
 int launch_apply(const void* r_, const void* invd_l_, const void* invd_u_, const void* mid_,
                  const void* ld_, const void* l_offsets, int nd_l, const void* ud_,
                  const void* u_offsets, int nd_u, void* w0_, void* w1_, void* out_,
                  int sweeps, long long n_total, long long lead, long long n_rows,
-                 void* stream_) {
-  if (sweeps < 1 || nd_l < 0 || nd_l > kMaxDiags || nd_u < 0 || nd_u > kMaxDiags) {
+                 long long tile, void* stream_) {
+  if (sweeps < 1 || nd_l < 0 || nd_l > kMaxDiags || nd_u < 0 || nd_u > kMaxDiags ||
+      tile < 0 || tile % kChunk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const T* r = static_cast<const T*>(r_);
   const T* invd_l = static_cast<const T*>(invd_l_);
   const T* invd_u = static_cast<const T*>(invd_u_);
   const T* mid = static_cast<const T*>(mid_);
+  const T* ld = static_cast<const T*>(ld_);
+  const T* ud = static_cast<const T*>(ud_);
   T* w0 = static_cast<T*>(w0_);
   T* w1 = static_cast<T*>(w1_);
   T* out = static_cast<T*>(out_);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const Offsets l_offs = load_offsets(l_offsets, nd_l);
+  const Offsets u_offs = load_offsets(u_offsets, nd_u);
+
+  if (tile > 0) {
+    // forward into w0, then backward (SGS: rhs2 = diag * w0) into out
+    int code = window_direction<T, true, false>(r, nullptr, invd_l, ld, l_offs, nd_l, w0,
+                                                sweeps, tile, n_total, lead, n_rows, stream);
+    if (code != 0) return code;
+    if (mid != nullptr) {
+      return window_direction<T, false, true>(w0, mid, invd_u, ud, u_offs, nd_u, out, sweeps,
+                                              tile, n_total, lead, n_rows, stream);
+    }
+    return window_direction<T, false, false>(w0, nullptr, invd_u, ud, u_offs, nd_u, out,
+                                             sweeps, tile, n_total, lead, n_rows, stream);
+  }
 
   // forward, in w0 / w1
   T* xw = nullptr;  // w0 or w1: the forward result
-  int code = direction<T>(r, nullptr, invd_l, nullptr, static_cast<const T*>(ld_), l_offsets,
-                          nd_l, sweeps, w0, w1, n_total, lead, n_rows, stream, &xw);
+  int code = direction<T>(r, nullptr, invd_l, nullptr, ld, l_offs, nd_l, sweeps, w0, w1,
+                          n_total, lead, n_rows, stream, &xw);
   if (code != 0) return code;
   T* other = xw == w0 ? w1 : w0;
 
@@ -186,9 +570,8 @@ int launch_apply(const void* r_, const void* invd_l_, const void* invd_u_, const
   T* first = (writes % 2 == 1) ? out : other;
   T* second = (writes % 2 == 1) ? other : out;
   T* z = nullptr;
-  code = direction<T>(xw, mid, invd_u, mid != nullptr ? xw : nullptr,
-                      static_cast<const T*>(ud_), u_offsets, nd_u, sweeps, first, second,
-                      n_total, lead, n_rows, stream, &z);
+  code = direction<T>(xw, mid, invd_u, mid != nullptr ? xw : nullptr, ud, u_offs, nd_u, sweeps,
+                      first, second, n_total, lead, n_rows, stream, &z);
   if (code != 0) return code;
   return z == out ? 0 : static_cast<int>(cudaErrorUnknown);
 }
@@ -196,45 +579,45 @@ int launch_apply(const void* r_, const void* invd_l_, const void* invd_u_, const
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/_build.py).  Every function
-// returns the first non-zero cudaGetLastError() of its launches, or 0.
+// returns the first non-zero CUDA error of its launches, or 0.
 extern "C" {
 
 // r, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
-// sweeps, n_total, lead, n_rows, stream
+// sweeps, n_total, lead, n_rows, tile, stream
 int smm_sgs_apply_f32(const void* r, const void* invd, const void* diag, const void* ld,
                       const void* l_offsets, int nd_l, const void* ud, const void* u_offsets,
                       int nd_u, void* w0, void* w1, void* out, int sweeps, long long n_total,
-                      long long lead, long long n_rows, void* stream) {
+                      long long lead, long long n_rows, long long tile, void* stream) {
   return launch_apply<float>(r, invd, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0,
-                             w1, out, sweeps, n_total, lead, n_rows, stream);
+                             w1, out, sweeps, n_total, lead, n_rows, tile, stream);
 }
 
 int smm_sgs_apply_f64(const void* r, const void* invd, const void* diag, const void* ld,
                       const void* l_offsets, int nd_l, const void* ud, const void* u_offsets,
                       int nd_u, void* w0, void* w1, void* out, int sweeps, long long n_total,
-                      long long lead, long long n_rows, void* stream) {
+                      long long lead, long long n_rows, long long tile, void* stream) {
   return launch_apply<double>(r, invd, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0,
-                              w1, out, sweeps, n_total, lead, n_rows, stream);
+                              w1, out, sweeps, n_total, lead, n_rows, tile, stream);
 }
 
 // r, invd_l, invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
-// sweeps, n_total, lead, n_rows, stream
+// sweeps, n_total, lead, n_rows, tile, stream
 int smm_tri_pair_apply_f32(const void* r, const void* invd_l, const void* invd_u,
                            const void* ld, const void* l_offsets, int nd_l, const void* ud,
                            const void* u_offsets, int nd_u, void* w0, void* w1, void* out,
                            int sweeps, long long n_total, long long lead, long long n_rows,
-                           void* stream) {
+                           long long tile, void* stream) {
   return launch_apply<float>(r, invd_l, invd_u, nullptr, ld, l_offsets, nd_l, ud, u_offsets,
-                             nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, stream);
+                             nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, stream);
 }
 
 int smm_tri_pair_apply_f64(const void* r, const void* invd_l, const void* invd_u,
                            const void* ld, const void* l_offsets, int nd_l, const void* ud,
                            const void* u_offsets, int nd_u, void* w0, void* w1, void* out,
                            int sweeps, long long n_total, long long lead, long long n_rows,
-                           void* stream) {
+                           long long tile, void* stream) {
   return launch_apply<double>(r, invd_l, invd_u, nullptr, ld, l_offsets, nd_l, ud, u_offsets,
-                              nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, stream);
+                              nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, stream);
 }
 
 }  // extern "C"

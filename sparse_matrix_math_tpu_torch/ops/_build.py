@@ -35,7 +35,7 @@ _COMPILE_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _P]
+_APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _LL, _P]
 _SIGNATURES = {
     # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, stream
     "smm_dia_spmv_padded_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
@@ -44,11 +44,11 @@ _SIGNATURES = {
     "smm_dia_spmv_f32": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     "smm_dia_spmv_f64": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     # r, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
-    # sweeps, n_total, lead, n_rows, stream
+    # sweeps, n_total, lead, n_rows, tile, stream
     "smm_sgs_apply_f32": _APPLY,
     "smm_sgs_apply_f64": _APPLY,
     # r, invd_l, invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1,
-    # out, sweeps, n_total, lead, n_rows, stream
+    # out, sweeps, n_total, lead, n_rows, tile, stream
     "smm_tri_pair_apply_f32": _APPLY,
     "smm_tri_pair_apply_f64": _APPLY,
     # vals, cols, chunk_ptr, row_of, x, y, n_slabs, n_rows, k, stream

@@ -19,9 +19,22 @@ is the diagonal scale alone.  Vectors live in the flat padded layout of
 geometry.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.  Each apply on the card adds one
 to :data:`launches`.
+
+On the card an apply takes one of two variants, by the rule of
+:func:`window_tile`: the halo-window kernels (one launch per direction,
+each CTA walking its tile's one-sided window in chunks of :data:`CHUNK`
+rows with the levels' rings in shared memory), or, where the rings do not
+fit or the halo reaches two tiles, the large-reach variant (one launch per
+step, ``2 * sweeps`` per apply).  :func:`sgs_apply_windowed_plain` and
+:func:`tri_pair_apply_windowed_plain` replay the window kernels'
+decomposition (tiles, chunks, cones and rings, with the kernels' index
+math) in PyTorch; the tests and ``chip_smoke.py`` hold them against the
+plain versions.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -32,6 +45,20 @@ __all__ = [
     "sgs_apply_fused", "tri_pair_apply_fused", "sgs_apply_plain", "tri_pair_apply_plain",
     "launches", "reset_launch_counts",
 ]
+
+# csrc/trisweep.cu's window kernels: rows per chunk, chunks of operands in
+# flight, and the dynamic shared memory of a CTA (the 227 KB one block may
+# use, less the kernel's static copy of the 64 offsets)
+CHUNK = 1024
+_STAGES = 3
+_SMEM_BYTES = 232448 - 4 * _MAX_DIAGS
+# The window kernels run while the halo is shorter than this many tiles.
+# On an H100, 3-D 7- and 27-point systems of 14 K-1 M rows at sweeps 2 and
+# 4: up to 1.76 tiles the window kernels were 6-22% faster than the
+# per-sweep ones or equal; from 2 tiles on they were 1-44% slower, except
+# the smallest system (64 K rows, 4.7 tiles) in float32
+# (tools/trisweep_ab.py).
+_HALO_TILES = 2
 
 # Kernel applies per wrapper, counted where the kernels are launched.
 launches = {"sgs_apply": 0, "tri_pair_apply": 0}
@@ -67,6 +94,161 @@ def tri_pair_apply_plain(pair, rp: torch.Tensor) -> torch.Tensor:
     return _sweeps_plain(pair.p_upper, pair.inv_diag_u_p, y, pair.sweeps)
 
 
+# -- the window kernels' decomposition ----------------------------------------
+
+
+def ring_rows(reach: int, chunk: int = CHUNK) -> int:
+    """Rows of one level's ring: ``reach`` rounded up to whole chunks, plus
+    the chunk itself (csrc/trisweep.cu ``ring_rows``)."""
+    return (-(-reach // chunk) + 1) * chunk
+
+
+def _offsets(p) -> tuple:
+    return () if p is None else tuple(map(int, p.offsets))
+
+
+def _reach(offsets: tuple) -> int:
+    return max((abs(o) for o in offsets), default=0)
+
+
+def _levels(offsets: tuple, sweeps: int) -> int:
+    return int(sweeps) if offsets else 1
+
+
+def _window_smem(offsets: tuple, sweeps: int, fixed: int, itemsize: int) -> int:
+    """Shared memory of one direction's window kernel: the rings of every
+    level but the last, and the staging of ``_STAGES`` chunks of operands
+    (``fixed`` vectors, and the strict diagonals when there is a sweep)."""
+    levels = _levels(offsets, sweeps)
+    if levels == 1:  # a scale: no ring, and no diagonals to stage
+        return itemsize * _STAGES * fixed * CHUNK
+    rings = (levels - 1) * ring_rows(_reach(offsets))
+    return itemsize * (rings + _STAGES * (fixed + len(offsets)) * CHUNK)
+
+
+def window_tile(pre, num_sms: int, itemsize: int) -> int:
+    """The rule that picks an apply's variant on the card: the tile (rows
+    per CTA) of the window kernels, or 0 for the large-reach variant.
+
+    The tile is the layout's chunks split evenly over ``num_sms`` CTAs, one
+    per SM.  The window kernels run when, in both directions, the rings of
+    ``levels - 1`` levels of ``ring_rows(reach)`` and the operand staging
+    fit the block's shared memory, and the halo ``(levels - 1) * reach`` is
+    shorter than ``_HALO_TILES`` tiles (every CTA sweeps its halo again, so
+    a long halo costs more than the launches it saves).  ``levels`` is
+    ``sweeps``, or 1 for an empty strict part; ``reach`` is the direction's
+    largest ``|offset|``."""
+    return _tile_rule(_offsets(pre.p_lower), _offsets(pre.p_upper), pre.n_total,
+                      int(pre.sweeps), hasattr(pre, "diag_p"), num_sms, itemsize)
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_rule(lower: tuple, upper: tuple, n_total: int, sweeps: int, sgs: bool,
+               num_sms: int, itemsize: int) -> int:
+    """:func:`window_tile` on plain values, worked out once per layout."""
+    tile = -(-n_total // (CHUNK * num_sms)) * CHUNK
+    for offsets, fixed, sign in ((lower, 2, -1), (upper, 3 if sgs else 2, 1)):
+        if any(o * sign <= 0 for o in offsets):
+            return 0
+        halo = (_levels(offsets, sweeps) - 1) * _reach(offsets)
+        if (_window_smem(offsets, sweeps, fixed, itemsize) > _SMEM_BYTES
+                or halo >= _HALO_TILES * tile):
+            return 0
+    return int(tile)
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def variant(pre, device) -> str:
+    """``"window"`` or ``"per-sweep"``: the variant an apply of ``pre`` takes
+    on the CUDA ``device`` (the rule of :func:`window_tile`)."""
+    device = torch.device(device)
+    itemsize = torch.empty((), dtype=pre.dtype).element_size()
+    return "window" if window_tile(pre, _num_sms(device.index or 0), itemsize) else "per-sweep"
+
+
+def _direction_windowed(pfac, invd, src, mid, pre, tile: int, chunk: int,
+                        forward: bool) -> torch.Tensor:
+    """One direction of csrc/trisweep.cu's window kernel, tile by tile and
+    chunk by chunk: each level of a chunk computes its cone's rows at once,
+    reading the previous level from a ring of ``ring_rows(reach, chunk)``
+    rows that starts as NaN.  The kernel also computes a chunk's rows
+    outside the cone, into ring slots that no row of the cone may read; here
+    they stay NaN, so a cone row that read one, or a slot the kernel has not
+    written, shows in the result."""
+    n_total, lead, n_rows = pre.n_total, pre.lead, pre.shape[0]
+    offsets = _offsets(pfac)
+    levels = _levels(offsets, pre.sweeps)
+    reach = _reach(offsets)
+    rows = ring_rows(reach, chunk) if levels > 1 else chunk
+    out = torch.empty_like(src)
+    for seg0 in range(0, n_total, tile):
+        seg1 = min(seg0 + tile, n_total)
+
+        def lo(k):
+            return max(seg0 - (levels - 1 - k) * reach, 0) if forward else seg0
+
+        def hi(k):
+            return seg1 if forward else min(seg1 + (levels - 1 - k) * reach, n_total)
+
+        chunks = range(lo(0) // chunk, -(-hi(0) // chunk))
+        ring = torch.full((max(levels - 1, 1), rows), float("nan"), dtype=src.dtype,
+                          device=src.device)
+        for cidx in (chunks if forward else reversed(chunks)):
+            c0 = cidx * chunk
+            e = torch.arange(c0, min(c0 + chunk, n_total), device=src.device)
+            data = (e >= lead) & (e < lead + n_rows) & (e >= lo(0)) & (e < hi(0))
+            rhs = src[e] if mid is None else mid[e] * src[e]
+            pos = (cidx % (rows // chunk)) * chunk + (e - c0)
+            for k in range(levels):
+                sel = (e >= lo(k)) & (e < hi(k))
+                if not bool(sel.any()):
+                    continue
+                if k == 0:
+                    v = rhs * invd[e]
+                else:
+                    acc = None
+                    for d, off in enumerate(offsets):
+                        t = pfac.diags_p[d, e] * ring[k - 1, (pos + off) % rows]
+                        acc = t if acc is None else acc + t
+                    v = (rhs - acc) * invd[e]
+                v = torch.where(data, v, torch.zeros((), dtype=v.dtype, device=v.device))
+                if k == levels - 1:
+                    out[e[sel]] = v[sel]
+                else:
+                    ring[k, pos[sel]] = v[sel]
+    return out
+
+
+def _check_tile(tile: int, chunk: int) -> None:
+    if chunk < 1 or tile < chunk or tile % chunk:
+        raise ValueError(f"tile {tile} must be a positive multiple of the chunk {chunk}: the "
+                         "window kernel refuses any other")
+
+
+def sgs_apply_windowed_plain(psgs, rp: torch.Tensor, tile: int,
+                             chunk: int = CHUNK) -> torch.Tensor:
+    """K4's window kernels replayed in PyTorch on tiles of ``tile`` rows and
+    chunks of ``chunk``: equal to :func:`sgs_apply_plain` bit for bit."""
+    _check_tile(tile, chunk)
+    y = _direction_windowed(psgs.p_lower, psgs.inv_diag_p, rp, None, psgs, tile, chunk, True)
+    return _direction_windowed(psgs.p_upper, psgs.inv_diag_p, y, psgs.diag_p, psgs, tile,
+                               chunk, False)
+
+
+def tri_pair_apply_windowed_plain(pair, rp: torch.Tensor, tile: int,
+                                  chunk: int = CHUNK) -> torch.Tensor:
+    """K5's window kernels replayed in PyTorch (as
+    :func:`sgs_apply_windowed_plain`): equal to :func:`tri_pair_apply_plain`."""
+    _check_tile(tile, chunk)
+    y = _direction_windowed(pair.p_lower, pair.inv_diag_l_p, rp, None, pair, tile, chunk, True)
+    return _direction_windowed(pair.p_upper, pair.inv_diag_u_p, y, None, pair, tile, chunk,
+                               False)
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -93,12 +275,19 @@ def _check(pre, vectors, rp: torch.Tensor) -> None:
                              f"1..{_MAX_DIAGS}")
 
 
+@functools.lru_cache(maxsize=256)
+def _offsets_array(offsets: tuple) -> np.ndarray:
+    """The int32 offsets the C entry reads (one 0 for an empty factor); kept
+    by the cache, so it outlives every call that passes its address."""
+    return np.asarray(offsets or (0,), dtype=np.int32)
+
+
 def _factor_args(p):
-    """(diagonals pointer, offsets array, count) of a strict factor, or
-    null/empty for an empty one; the offsets array must outlive the call."""
+    """(diagonals pointer, offsets address, count) of a strict factor, or
+    null/empty for an empty one."""
     if p is None:
-        return None, np.zeros(1, dtype=np.int32), 0
-    return p.diags_p.data_ptr(), np.asarray(p.offsets, dtype=np.int32), len(p.offsets)
+        return None, _offsets_array(()).ctypes.data, 0
+    return p.diags_p.data_ptr(), _offsets_array(tuple(p.offsets)).ctypes.data, len(p.offsets)
 
 
 def _launch(name: str, fn, pre, rp: torch.Tensor, first, second) -> torch.Tensor:
@@ -106,11 +295,17 @@ def _launch(name: str, fn, pre, rp: torch.Tensor, first, second) -> torch.Tensor
 
     ld, l_offs, nd_l = _factor_args(pre.p_lower)
     ud, u_offs, nd_u = _factor_args(pre.p_upper)
-    w0, w1, out = (torch.empty_like(rp) for _ in range(3))
+    tile = window_tile(pre, _num_sms(rp.device.index), rp.element_size())
+    if tile and rp.data_ptr() % 16:
+        rp = rp.clone()  # the window kernels copy 16-byte runs of every vector
+    # the window kernels need one scratch vector, the large-reach variant two
+    w0, out = torch.empty_like(rp), torch.empty_like(rp)
+    w1 = torch.empty_like(rp) if tile == 0 else None
     with torch.cuda.device(rp.device):
-        code = fn(rp.data_ptr(), first.data_ptr(), second.data_ptr(), ld, l_offs.ctypes.data,
-                  nd_l, ud, u_offs.ctypes.data, nd_u, w0.data_ptr(), w1.data_ptr(),
-                  out.data_ptr(), int(pre.sweeps), pre.n_total, pre.lead, pre.shape[0],
+        code = fn(rp.data_ptr(), first.data_ptr(), second.data_ptr(), ld, l_offs, nd_l, ud,
+                  u_offs, nd_u, w0.data_ptr(),
+                  None if w1 is None else w1.data_ptr(), out.data_ptr(), int(pre.sweeps),
+                  pre.n_total, pre.lead, pre.shape[0], tile,
                   torch.cuda.current_stream().cuda_stream)
     _build.check(code, name)
     launches[name] += 1

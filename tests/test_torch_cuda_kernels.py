@@ -152,6 +152,71 @@ def test_one_sided_and_diagonal_applies(cuda_device, offsets):
                  cuda_device)
 
 
+# Shapes of many window tiles (poisson_2d(300): 89 tiles of one chunk, the
+# halo 900 rows at sweeps 4) and one whose tile of 1024 rows is shorter
+# than its halo (poisson_3d(40), reach 1600): the window kernels at sweeps 2
+# (a halo of 1.6 tiles), the large-reach variant at sweeps 4 (4.7 tiles).
+MULTI_TILE = [("sgs", "poisson_2d", (300,)), ("sgs", "convection_diffusion_2d", (300,)),
+              ("ic0", "poisson_2d", (300,)), ("ilu0", "poisson_2d", (300,)),
+              ("sgs", "poisson_3d", (40,))]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("kind,name,args", MULTI_TILE,
+                         ids=[f"{k}-{n}{a}" for k, n, a in MULTI_TILE])
+def test_multi_tile_applies_match_plain(cuda_device, kind, name, args, dtype, sweeps):
+    csr = getattr(smm, name)(*args, dtype=dtype, device=cuda_device)
+    dia = smm.dia_from_csr(csr)
+    if kind == "sgs":
+        pre = PaddedSGS.from_dia(dia, sweeps=sweeps)
+        fns = (T.sgs_apply_fused, T.sgs_apply_plain, "sgs_apply")
+    else:
+        fac = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=sweeps,
+                                     strict_layout="csr")
+        pre = PaddedTriPair.from_factors(fac.lower, fac.upper, dia)
+        fns = (T.tri_pair_apply_fused, T.tri_pair_apply_plain, "tri_pair_apply")
+    large = name == "poisson_3d" and sweeps == 4
+    assert T.variant(pre, cuda_device) == ("per-sweep" if large else "window")
+    _check_apply(pre, *fns[:2], fns[2], dtype, cuda_device)
+
+
+def test_windowed_replay_matches_the_kernel(cuda_device):
+    """The PyTorch replay of the window kernels at the kernel's own tile and
+    chunk, on the card, equal to the kernel's result."""
+    pre = PaddedSGS.from_dia(_dia("poisson_2d", (300,), torch.float32, cuda_device), sweeps=4)
+    rp = _padded_rhs(pre, torch.float32, cuda_device)
+    tile = T.window_tile(pre, torch.cuda.get_device_properties(0).multi_processor_count, 4)
+    assert tile > 0
+    assert torch.equal(T.sgs_apply_windowed_plain(pre, rp, tile), T.sgs_apply_fused(pre, rp))
+
+
+def test_window_entry_refuses_a_partial_chunk_tile(cuda_device):
+    """A tile that is not a whole number of chunks, or an offset of the
+    wrong sign for its direction, is refused with an error code."""
+    from sparse_matrix_math_tpu_torch.ops import _build
+
+    pre = PaddedSGS.from_dia(_dia("poisson_2d", (40,), torch.float64, cuda_device), sweeps=4)
+    rp = _padded_rhs(pre, torch.float64, cuda_device)
+    lib = _build.library()
+    lo = np.asarray(pre.p_lower.offsets, dtype=np.int32)
+    up = np.asarray(pre.p_upper.offsets, dtype=np.int32)
+    w0, w1, out = (torch.empty_like(rp) for _ in range(3))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(tile, l_offs):
+        return lib.smm_sgs_apply_f64(
+            rp.data_ptr(), pre.inv_diag_p.data_ptr(), pre.diag_p.data_ptr(),
+            pre.p_lower.diags_p.data_ptr(), l_offs.ctypes.data, len(l_offs),
+            pre.p_upper.diags_p.data_ptr(), up.ctypes.data, len(up), w0.data_ptr(),
+            w1.data_ptr(), out.data_ptr(), 4, pre.n_total, pre.lead, pre.shape[0], tile, stream)
+
+    assert call(T.CHUNK, lo) == 0
+    assert call(T.CHUNK + 32, lo) != 0
+    assert call(T.CHUNK, -lo) != 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
 def test_solves_match_cpu(cuda_device, dtype):
     """The CUDA solve path (kernel matvec) against the CPU one (plain

@@ -51,23 +51,33 @@ def tri_fields(tri):
     return out
 
 
-def _poisson(nx, dtype):
-    jcsr = jax_gen.poisson_2d(nx, dtype=dtype)
+def _system(name, args, dtype):
+    """A JAX generator's system: its CSR and DIA forms and the port's DIA."""
+    jcsr = getattr(jax_gen, name)(*args, dtype=dtype)
     jdia = jax_dia_from_csr(jcsr)
     tdia = interop.dia_from_numpy(np.asarray(jdia.diags), jdia.offsets, jdia.shape,
                                   jdia.nnz, "cpu")
     return jcsr, jdia, tdia
 
 
+def _poisson(nx, dtype):
+    return _system("poisson_2d", (nx,), dtype)
+
+
 def _rhs(n, dtype, seed=0):
     return np.random.default_rng(seed).standard_normal(n).astype(dtype)
 
 
-def _port_apply(pre, r):
-    """The port's padded apply of ``r``: the logical result and the padded one."""
+def _padded(pre, r):
+    """``r`` lifted into the padded layout of ``pre``."""
     rp = torch.zeros(pre.n_total, dtype=torch.from_numpy(r).dtype)
     rp[pre.lead:pre.lead + r.shape[0]] = torch.from_numpy(r)
-    zp = pre.apply_padded(rp)
+    return rp
+
+
+def _port_apply(pre, r):
+    """The port's padded apply of ``r``: the logical result and the padded one."""
+    zp = pre.apply_padded(_padded(pre, r))
     return zp[pre.lead:pre.lead + r.shape[0]].numpy(), zp
 
 
@@ -215,3 +225,177 @@ def test_from_dia_validates():
                      nnz=tdia.nnz)
     with pytest.raises(FactorizationError):
         PaddedSGS.from_dia(tiny)
+
+
+# -- the window kernels' decomposition (csrc/trisweep.cu window_kernel) ---------
+# sgs_apply_windowed_plain / tri_pair_apply_windowed_plain replay the kernel's
+# tiles, chunks, cones and rings on the CPU.  Small tiles and chunks give many
+# windows, clipped first and last tiles and a tile edge at ``lead`` (128).
+
+WINDOW_SYSTEMS = [("poisson_2d", (40,)), ("poisson_3d_27pt", (6,)),
+                  ("convection_diffusion_2d", (24,))]
+WINDOW_SWEEPS = [1, 2, 4, 5]
+# (tile, chunk): tiles of 64-256 rows; 64 is shorter than every halo at sweeps >= 4
+TILINGS = [(64, 32), (128, 64), (256, 64)]
+
+
+def _hold_windowed(pre, rp, windowed, plain, want, dtype):
+    """Every tiling bit for bit the plain version, guard rows 0, and the
+    logical rows against the JAX kernel's ``want``."""
+    ref = plain(pre, rp)
+    for tile, chunk in TILINGS:
+        got = windowed(pre, rp, tile, chunk)
+        assert torch.equal(got, ref), (tile, chunk)
+        _assert_guards_zero(pre, got)
+    _assert_close(got[pre.lead:pre.lead + pre.shape[0]].numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("sweeps", WINDOW_SWEEPS)
+@pytest.mark.parametrize("name,args", WINDOW_SYSTEMS, ids=[f"{n}{a}" for n, a in WINDOW_SYSTEMS])
+def test_windowed_sgs_matches_plain_and_jax(dtype, name, args, sweeps):
+    _, jdia, tdia = _system(name, args, dtype)
+    r = _rhs(tdia.shape[0], dtype, seed=3)
+    jp = JaxPaddedSGS.from_dia(jdia, sweeps=sweeps)
+    ref = jp.p_lower
+    want = np.asarray(ref.from_padded(jax_sgs_fused(jp, ref.to_padded(jnp.asarray(r)),
+                                                    interpret=True)))
+    tp = PaddedSGS.from_dia(tdia, sweeps=sweeps)
+    _hold_windowed(tp, _padded(tp, r), T.sgs_apply_windowed_plain, T.sgs_apply_plain, want,
+                   dtype)
+
+
+PAIR_WINDOW_CASES = [("ic0", "poisson_2d", (40,)), ("ilu0", "poisson_2d", (40,)),
+                     ("ic0", "poisson_3d_27pt", (6,)),
+                     ("ilu0", "convection_diffusion_2d", (24,))]
+
+
+@pytest.mark.parametrize("sweeps", WINDOW_SWEEPS)
+@pytest.mark.parametrize("kind,name,args", PAIR_WINDOW_CASES,
+                         ids=[f"{k}-{n}{a}" for k, n, a in PAIR_WINDOW_CASES])
+def test_windowed_tri_pair_matches_plain_and_jax(dtype, kind, name, args, sweeps):
+    jcsr, jdia, tdia = _system(name, args, dtype)
+    r = _rhs(tdia.shape[0], dtype, seed=4)
+    jpre = jsmm.get_preconditioner(jcsr, kind, method="jacobi", sweeps=sweeps)
+    jpair = JaxPaddedTriPair.from_factors(jpre.lower, jpre.upper, jdia)
+    ref = jpair.p_lower
+    want = np.asarray(ref.from_padded(jax_tri_pair_fused(jpair, ref.to_padded(jnp.asarray(r)),
+                                                         interpret=True)))
+    if kind == "ic0":
+        tpre = interop.ic0_from_numpy(tri_fields(jpre.lower), tri_fields(jpre.upper), "cpu")
+    else:
+        tpre = interop.ilu0_from_numpy(tri_fields(jpre.lower), tri_fields(jpre.upper),
+                                       jpre.shift, "cpu")
+    pair = PaddedTriPair.from_factors(tpre.lower, tpre.upper, tdia)
+    _hold_windowed(pair, _padded(pair, r), T.tri_pair_apply_windowed_plain,
+                   T.tri_pair_apply_plain, want, dtype)
+
+
+@pytest.mark.parametrize("sweeps", [1, 4])
+@pytest.mark.parametrize("offsets", [(0, 1), (-1, 0), (0,)],
+                         ids=["upper_only", "lower_only", "diagonal"])
+def test_windowed_one_sided_and_diagonal(offsets, sweeps):
+    """An empty strict part is a scale in one level; the other side still
+    walks its windows (the matrices of test_one_sided_matrix_matches_jax)."""
+    n = 3000
+    rng = np.random.default_rng(0)
+    main = rng.uniform(2.0, 3.0, n)
+    off = rng.uniform(-1.0, -0.5, n)
+    rows = {0: main, 1: off, -1: off}
+    diags = np.stack([rows[o] for o in offsets]).astype(np.float32)
+    jdia = JaxDIAMatrix(diags=jnp.asarray(diags), offsets=offsets, shape=(n, n),
+                        nnz=len(offsets) * n)
+    tdia = interop.dia_from_numpy(diags, offsets, (n, n), len(offsets) * n, "cpu")
+    r = rng.standard_normal(n).astype(np.float32)
+    jp = JaxPaddedSGS.from_dia(jdia, sweeps=sweeps)
+    ref = jp.p_lower or jp.p_upper
+    if ref is None:
+        want = r / main.astype(np.float32)
+    else:
+        want = np.asarray(ref.from_padded(jax_sgs_fused(jp, ref.to_padded(jnp.asarray(r)),
+                                                        interpret=True)))
+    tp = PaddedSGS.from_dia(tdia, sweeps=sweeps)
+    _hold_windowed(tp, _padded(tp, r), T.sgs_apply_windowed_plain, T.sgs_apply_plain, want,
+                   np.float32)
+
+
+def test_window_shorter_than_the_halo_is_widened():
+    """A tile shorter than the halo: the kernel's window still reaches the
+    whole halo, (sweeps - 1) * reach rows, across the tiles below (above, in
+    the backward direction), so the result is exact (on the card the rule
+    takes the window kernels while the halo is under two tiles).  A tile
+    that is not a whole number of chunks is refused, as the C entry
+    refuses it."""
+    _, _, tdia = _poisson(40, np.float64)
+    tp = PaddedSGS.from_dia(tdia, sweeps=5)
+    rp = _padded(tp, _rhs(tdia.shape[0], np.float64))
+    halo = (tp.sweeps - 1) * 40
+    assert halo > 64
+    assert torch.equal(T.sgs_apply_windowed_plain(tp, rp, 64, 32), T.sgs_apply_plain(tp, rp))
+    for tile, chunk in ((100, 32), (16, 32), (0, 32)):
+        with pytest.raises(ValueError):
+            T.sgs_apply_windowed_plain(tp, rp, tile, chunk)
+
+
+def test_a_ring_one_chunk_short_reads_unwritten_rows(monkeypatch):
+    """The rings start as NaN, so a ring too short for reach + chunk (a row
+    overwritten before the next level has read it) shows in the result: the
+    check that the replay would catch a kernel with a short ring."""
+    _, _, tdia = _poisson(40, np.float64)
+    tp = PaddedSGS.from_dia(tdia, sweeps=4)
+    rp = _padded(tp, _rhs(tdia.shape[0], np.float64))
+    ref = T.sgs_apply_plain(tp, rp)
+    assert T.ring_rows(40, 32) == 96
+    right = T.ring_rows
+    monkeypatch.setattr(T, "ring_rows", lambda reach, chunk=T.CHUNK: right(reach, chunk) - chunk)
+    assert not torch.equal(T.sgs_apply_windowed_plain(tp, rp, 128, 32), ref)
+
+
+class _Factor:
+    def __init__(self, offsets):
+        self.offsets = tuple(offsets)
+
+
+class _Layout:
+    """The fields window_tile reads, for a full-size layout without its data."""
+
+    def __init__(self, offsets, n_total, sweeps, sgs=True):
+        self.p_lower = _Factor(o for o in offsets if o < 0)
+        self.p_upper = _Factor(o for o in offsets if o > 0)
+        self.n_total, self.sweeps = n_total, sweeps
+        if sgs:
+            self.diag_p = None
+
+
+def _stencil_offsets(m, dims, points):
+    if dims == 2:
+        return (-m, -1, 1, m)
+    if points == 7:
+        return (-m * m, -m, -1, 1, m, m * m)
+    return tuple(dz * m * m + dy * m + dx for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                 for dx in (-1, 0, 1) if (dz, dy, dx) != (0, 0, 0))
+
+
+@pytest.mark.parametrize("m,dims,points,sweeps,itemsize,window", [
+    (1414, 2, 5, 4, 4, True), (1414, 2, 5, 4, 8, True),     # the bench system
+    (300, 2, 5, 4, 4, True),                                # many tiles of one chunk
+    (243, 3, 7, 4, 4, False), (243, 3, 7, 2, 8, False),     # rings over 227 KB
+    (128, 3, 27, 4, 4, False),                              # halo 3 tiles deep
+    (40, 3, 7, 4, 4, False), (40, 3, 7, 4, 8, False),       # halo 4.7 tiles
+    (243, 3, 7, 1, 8, True), (128, 3, 27, 1, 8, True),      # no sweep: one level
+    (40, 3, 7, 2, 4, True), (40, 3, 7, 2, 8, True),         # halo 1.6 tiles
+    (100, 3, 7, 2, 4, True), (100, 3, 7, 4, 4, False),      # halo 1.2 / 3.7 tiles
+    (64, 3, 7, 2, 4, False),                                # halo two tiles
+    (24, 3, 27, 4, 4, True), (24, 3, 27, 2, 8, False),      # f64: staging too big
+])
+def test_window_rule_at_full_size(m, dims, points, sweeps, itemsize, window):
+    """The variant rule at the card's 132 SMs on the phase-A shapes and the
+    card tests' shapes, from their offsets and padded lengths alone."""
+    offsets = _stencil_offsets(m, dims, points)
+    reach = max(offsets)
+    n = m ** dims
+    n_total = (-(-reach // 128) * 2 + -(-n // 128)) * 128
+    tile = T.window_tile(_Layout(offsets, n_total, sweeps), 132, itemsize)
+    assert (tile > 0) == window
+    if window:  # whole chunks, at most one tile per SM, the halo under two tiles
+        assert tile % T.CHUNK == 0 and -(-n_total // tile) <= 132
+        assert (sweeps - 1) * reach < 2 * tile
