@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DIA, general-pattern, double-word and routed solve
-paths and its front door once on one CUDA card.
+"""Drive the PyTorch port's DIA, general-pattern, double-word, routed and
+mixed-precision solve paths and its front door once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,8 +55,18 @@ the port's CSR product and ``torch.sparse_csr_tensor``, then
 must go through a ``RoutedMatrix``; ``solve(..., auto_format=True)`` on
 ``poisson_2d(1414)``, which must go through the matrix-free grid stencil, and
 its pre-route to the double-word refinement at eps 1e-8 on f32 data; and
-``bicg_symmetric`` and ``cgs`` on the padded path.  Phase C solves a small
-system and compares the solution with scipy's direct solve.
+``bicg_symmetric`` and ``cgs`` on the padded path.  Phase H does both for
+the mixed-precision path: K2's bfloat16-diagonal instantiation against its
+plain version (bit for bit, guard rows 0) on ``poisson_2d(1414)`` and
+``poisson_3d_27pt(128)``, timed from a CUDA graph beside float32 K2, then
+``mixed_cg`` on each (b = A @ ones; epsilon 1.05 x plain ``cg``'s true
+residual, and 1e-4 * ||b||) held to the host's float64 residual, with the
+counters reset just before it (K2-bf16 launches at least the inner
+iterations, float32 K2 launches 1 + 2 x rounds), beside plain ``cg`` at the
+same epsilon (wall, device time per iteration), and ``solve(csr, b,
+auto_format=True, matrix_dtype="bfloat16")``, which must keep DIA and warn
+on the 5-point stencil only.  Phase C solves a small system and compares
+the solution with scipy's direct solve.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
@@ -480,8 +490,8 @@ def phase_b(smm, K, loop, torch, dev):
                                     K.launches, "dia_spmv_padded", 1)
         solved[label] = (res.iterations, wall)
     counts = dict(K.launches)
-    for kname, n in counts.items():
-        require(n > 0, f"main path launched {kname} {n} times")
+    for kname in ("dia_spmv", "dia_spmv_padded"):
+        require(counts[kname] > 0, f"main path launched {kname} {counts[kname]} times")
     return counts, solved
 
 
@@ -1649,6 +1659,180 @@ def phase_r(smm, loop, torch, dev, dia_solves):
     return stats, counts
 
 
+def profiled_us(torch, solve):
+    """Device kernel time (us) and kernel launches of one solve under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = solve()
+        float(res.residual_norm)
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation]
+    return sum(ev.self_device_time_total for ev in events), sum(ev.count for ev in events)
+
+
+def phase_h(smm, K, loop, torch, dev):
+    """The mixed-precision path at full width: ``mixed_cg`` (bfloat16
+    diagonals through K2's narrow instantiation in the inner solve, the
+    float32 true residual through K2 each round) and ``solve(...,
+    matrix_dtype="bfloat16", auto_format=True)``, beside plain float32 ``cg``
+    at the same epsilon, on the two systems the JAX package measured it on:
+    ``poisson_2d(1414)`` at epsilon = plain cg's true residual x 1.05
+    (bench.py:377-407) and ``poisson_3d_27pt(128)`` at 1e-4 * ||b||
+    (benchmarks/mixed_wide_stencil.py:51-57), b = A @ ones."""
+    import dataclasses
+    import warnings
+
+    from sparse_matrix_math_tpu_torch.solvers import mixed as MX
+
+    print("== phase H: mixed precision (bf16 diagonals, K2's narrow shape) at full width")
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stats = {"err": 0.0, "cases": {}, "solves": {}}
+    launched_lo = 0
+    for label, make, args, rel_eps in (("poisson_2d(1414)", smm.poisson_2d, (1414,), None),
+                                       ("poisson_3d_27pt(128)", smm.poisson_3d_27pt, (128,),
+                                        1e-4)):
+        csr = make(*args, dtype=torch.float32, device=dev)
+        dia = smm.dia_from_csr(csr)
+        n, nd = dia.shape[0], len(dia.offsets)
+        p_hi = K.pad_dia(dia)
+        p_lo = dataclasses.replace(p_hi, diags_p=p_hi.diags_p.to(torch.bfloat16))
+        xp = p_hi.to_padded(torch.rand(n, generator=gen, device=dev) - 0.5)
+
+        # -- K2 on bf16 diagonals: bit for bit its plain version, timed ------
+        before = dict(K.launches)
+        y = K.dia_spmv_padded(p_lo, xp)
+        y_ref = K.dia_spmv_padded_plain(p_lo.diags_p, p_lo.offsets, p_lo.lead, n, xp)
+        torch.cuda.synchronize()
+        err = (y - y_ref).abs().max().item()
+        require(K.launches["dia_spmv_padded_bf16"] == before["dia_spmv_padded_bf16"] + 1
+                and K.launches["dia_spmv_padded"] == before["dia_spmv_padded"],
+                f"K2 bf16 {label}: its own launch counter rose, f32 K2's did not", quiet=True)
+        require(y.dtype == torch.float32 and bits_equal(torch, y, y_ref)
+                and bool(torch.isfinite(y).all()),
+                f"K2 bf16 {label}: {n} rows bit for bit its plain version")
+        require(bool((y[:p_lo.lead] == 0).all()) and bool((y[p_lo.lead + n:] == 0).all()),
+                f"K2 bf16 {label}: guard rows exactly 0")
+        ms = graph_ms(torch, lambda: K.dia_spmv_padded(p_lo, xp))
+        f32_ms = graph_ms(torch, lambda: K.dia_spmv_padded(p_hi, xp))
+        wrapper_ms = median_ms(lambda: K.dia_spmv_padded(p_lo, xp))
+        plain_ms = median_ms(lambda: K.dia_spmv_padded_plain(p_lo.diags_p, p_lo.offsets,
+                                                             p_lo.lead, n, xp),
+                             samples=3, calls=5)
+        x = p_hi.from_padded(xp).contiguous()
+        lib = library_csr(torch, csr.data, csr.indices, csr.indptr, csr.shape)
+        lib_ms = median_ms(lambda: lib @ x)
+        del lib
+        lo_bytes, hi_bytes = (nd * 2 + 8) * p_hi.n_total, (nd * 4 + 8) * p_hi.n_total
+        case = {"n": n, "ndiags": nd, "n_total": p_hi.n_total, "ms": ms, "f32_ms": f32_ms,
+                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms(lo_bytes), "f32_bound_ms": bound_ms(hi_bytes),
+                "err": err}
+        print(f"  K2 bf16 {label}: {nd} diagonals, n_total {p_hi.n_total}: graph {ms:.4f} ms "
+              f"({lo_bytes / ms / 1e6:.0f} GB/s, {100 * case['bound_ms'] / ms:.0f}% of the "
+              f"{case['bound_ms']:.4f} ms bound, {lo_bytes / 1e6:.1f} MB); f32 K2 graph "
+              f"{f32_ms:.4f} ms ({100 * case['f32_bound_ms'] / f32_ms:.0f}% of "
+              f"{case['f32_bound_ms']:.4f}); bf16 through the wrapper {wrapper_ms:.4f} ms; "
+              f"plain {plain_ms:.3f} ms; torch.sparse_csr_tensor(f32) @ x {lib_ms:.4f} ms")
+        stats["cases"][label] = case
+        stats["err"] = max(stats["err"], err)
+        del y, y_ref, p_lo, xp
+
+        # -- the solves -------------------------------------------------------
+        b = dia @ torch.ones(n, dtype=torch.float32, device=dev)
+        eps_cg = 1e-4 if rel_eps is None else rel_eps * float(torch.linalg.norm(b))
+
+        def timed(solve):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve()
+            float(res.residual_norm)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        cg_kw = dict(epsilon=eps_cg, max_iterations=6000)
+        timed(lambda: smm.cg(dia, b, **cg_kw))  # warm
+        cg_res, cg_wall = timed(lambda: smm.cg(dia, b, **cg_kw))
+        cg_true, _ = host_residuals(csr, b, cg_res.x)
+        eps = 1.05 * cg_true if rel_eps is None else eps_cg
+        mx_kw = dict(epsilon=eps, max_iterations=6000)
+        timed(lambda: smm.mixed_cg(dia, b, **mx_kw))  # warm
+        # the counters at 0 just before the measured solve, read just after
+        K.reset_launch_counts()
+        MX.reset_loop_counts()
+        syncs0 = loop.host_syncs["count"]
+        mx_res, mx_wall = timed(lambda: smm.mixed_cg(dia, b, **mx_kw))
+        counts, rounds = dict(K.launches), MX.loop_counts["rounds"]
+        syncs = loop.host_syncs["count"] - syncs0
+        mx_true, mx_same = host_residuals(csr, b, mx_res.x)
+        its = mx_res.iterations
+        cg_dev, cg_kernels = profiled_us(torch, lambda: smm.cg(dia, b, **cg_kw))
+        mx_dev, mx_kernels = profiled_us(torch, lambda: smm.mixed_cg(dia, b, **mx_kw))
+        print(f"{label} b=A@ones eps {eps:.6e}: mixed_cg {mx_res.status_enum().name} "
+              f"inner iterations {its}, rounds {rounds}, residual_norm "
+              f"{float(mx_res.residual_norm):.6e}, host f64 {mx_true:.6e} (f32 {mx_same:.6e}); "
+              f"wall {mx_wall:.4f} s, {1e6 * mx_wall / max(its, 1):.1f} us/iteration, device "
+              f"{mx_dev / max(its, 1):.1f} us/iteration in {mx_kernels / max(its, 1):.1f} kernels, "
+              f"{syncs} host syncs; launches {counts}")
+        print(f"{label}: plain f32 cg eps {eps_cg:.6e} {cg_res.status_enum().name} "
+              f"iterations {cg_res.iterations} floor_hit={cg_res.floor_hit}, host f64 "
+              f"{cg_true:.6e}; wall {cg_wall:.4f} s, "
+              f"{1e6 * cg_wall / max(cg_res.iterations, 1):.1f} us/iteration, device "
+              f"{cg_dev / max(cg_res.iterations, 1):.1f} us/iteration in "
+              f"{cg_kernels / max(cg_res.iterations, 1):.1f} kernels; mixed/plain wall "
+              f"{mx_wall / cg_wall:.3f}")
+        require(mx_res.status_enum() == smm.SolverStatus.SUCCESS and mx_true <= eps,
+                f"mixed_cg {label}: SUCCESS with the host float64 residual {mx_true:.6e} <= "
+                f"epsilon {eps:.6e}")
+        require(tuple(mx_res.x.shape) == (n,) and bool(torch.isfinite(mx_res.x).all()),
+                f"mixed_cg {label}: x finite, shape ({n},)", quiet=True)
+        require(counts["dia_spmv_padded_bf16"] >= its,
+                f"mixed_cg {label}: {counts['dia_spmv_padded_bf16']} K2 bf16 launches >= "
+                f"{its} inner iterations")
+        require(counts["dia_spmv_padded"] == 1 + 2 * rounds and counts["dia_spmv"] == 0,
+                f"mixed_cg {label}: {counts['dia_spmv_padded']} f32 K2 launches = 1 + 2 x "
+                f"{rounds} rounds")
+        launched_lo += counts["dia_spmv_padded_bf16"]
+        stats["solves"][label] = {
+            "epsilon": eps, "status": mx_res.status_enum().name, "iterations": its,
+            "rounds": rounds, "host_f64_residual": mx_true, "wall_s": mx_wall,
+            "us_per_iteration": 1e6 * mx_wall / max(its, 1),
+            "device_us_per_iteration": mx_dev / max(its, 1),
+            "kernels_per_iteration": mx_kernels / max(its, 1),
+            "k2_bf16_launches": counts["dia_spmv_padded_bf16"],
+            "k2_f32_launches": counts["dia_spmv_padded"],
+            "cg_iterations": cg_res.iterations, "cg_wall_s": cg_wall,
+            "cg_us_per_iteration": 1e6 * cg_wall / max(cg_res.iterations, 1),
+            "cg_device_us_per_iteration": cg_dev / max(cg_res.iterations, 1),
+            "cg_kernels_per_iteration": cg_kernels / max(cg_res.iterations, 1)}
+
+        # -- the front door: DIA kept for the bf16 stream ----------------------
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fd = smm.solve(csr, b, method="cg", auto_format=True, matrix_dtype="bfloat16",
+                           epsilon=eps, max_iterations=6000)
+        warned = any(issubclass(w.category, smm.PerformanceWarning)
+                     and "matrix_dtype" in str(w.message) for w in seen)
+        fd_true, _ = host_residuals(csr, b, fd.x)
+        require(fd.status_enum() == smm.SolverStatus.SUCCESS and fd_true <= eps
+                and warned == (nd <= 9),
+                f"solve(csr, auto_format=True, matrix_dtype='bfloat16') {label}: SUCCESS in "
+                f"{fd.iterations} inner iterations through DIA, host f64 {fd_true:.6e}; "
+                f"narrow-stencil warning {'given' if warned else 'not given'} ({nd} diagonals)")
+        del csr, dia, p_hi, b, cg_res, mx_res, fd
+        torch.cuda.empty_cache()
+    stats["launches"] = launched_lo
+    first = stats["cases"]["poisson_2d(1414)"]
+    stats.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                         "f32_ms", "wrapper_ms")})
+    print(f"phase H took {time.perf_counter() - t_start:.1f} s")
+    return stats
+
+
 def phase_c(smm, torch, dev):
     """A small solve against scipy's direct solve."""
     import numpy as np
@@ -1720,6 +1904,7 @@ def main() -> int:
     del wsys
     dstats, dcounts = phase_d(smm, _loop, torch, dev)
     rstats, rcounts = phase_r(smm, _loop, torch, dev, dia_solves)
+    hstats = phase_h(smm, K, _loop, torch, dev)
     phase_c(smm, torch, dev)
 
     def entry(name, source, replaces, launches, st, **extra):
@@ -1737,6 +1922,17 @@ def main() -> int:
         entry("dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)", _SOURCE,
               f"{_PALLAS}:254", counts["dia_spmv_padded"], stats["dia_spmv_padded"],
               also_replaces=f"{_PALLAS}:281"),
+        # K2/K3's bf16-diagonal call shape (the mixed solve's inner product):
+        # ms from a CUDA graph of 20 calls beside f32 K2's (f32_ms), bound_ms
+        # (ndiags * 2 + 8) * n_total bytes, at poisson_2d(1414); every system
+        # in cases; launches are phase H's two measured mixed_cg solves
+        entry("dia_padded_kernel<__nv_bfloat16, float> (dia_spmv_padded on bf16 diagonals)",
+              _SOURCE, f"{_PALLAS}:254", hstats["launches"], hstats,
+              also_replaces=f"{_PALLAS}:281", entry=f"{_PALLAS}:356",
+              library_of="torch.sparse_csr_tensor(f32) @ x, the nearest call: no PyTorch "
+                         "call multiplies bf16-stored values by an f32 vector",
+              f32_ms=hstats["f32_ms"], wrapper_ms=hstats["wrapper_ms"],
+              cases=hstats["cases"], solves=hstats["solves"]),
         entry("dia_kernel (dia_spmv)", _SOURCE, f"{_PALLAS}:91", counts["dia_spmv"],
               stats["dia_spmv"]),
         # K4/K5: ms from a CUDA graph of 20 applies (wrapper_ms through the

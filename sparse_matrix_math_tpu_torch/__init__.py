@@ -26,6 +26,8 @@ with double-word operators (:class:`DfDiaMatrix`, :class:`DfEllMatrix`,
 Public names follow the JAX package.
 """
 
+__version__ = "0.1.0"
+
 from .formats import (
     COOArrays,
     CSRMatrix,
@@ -36,11 +38,14 @@ from .formats import (
     PerformanceWarning,
     ReorderedMatrix,
     RoutedMatrix,
+    TripletMatrix,
     WSellMatrix,
     auto_route_for_solve,
     best_format,
     coo_from_arrays,
     csr_from_coo,
+    csr_from_dense,
+    csr_from_triplet,
     dia_from_csr,
     ell_from_csr,
     hyb_from_csr,
@@ -54,16 +59,27 @@ from .formats import (
     try_wsell_from_csr,
     wsell_from_csr,
 )
-from .io import MatrixLoadStatus, MatrixMarketError, load_matrix_csr, load_matrix_df
+from .io import (
+    MatrixLoadStatus,
+    MatrixMarketError,
+    load_matrix,
+    load_matrix_csr,
+    load_matrix_df,
+    load_matrix_market,
+    load_smmdt,
+    save_dense_text,
+)
 from .ops import (
     DfDiaMatrix,
     DfEllMatrix,
     DfGridStencil,
+    axpy,
     df_from_host,
     df_operator_from_host_csr,
     df_to_host,
     dot,
     norm2,
+    norm2_squared,
     rmult,
     rmult_add,
     rmult_sub,
@@ -97,6 +113,7 @@ from .solvers import (
     cg_multi,
     cgs,
     conjugate_gradient,
+    mixed_cg,
     conjugate_gradient_squared,
     solve,
 )
@@ -108,26 +125,29 @@ from .utils import (
     poisson_3d,
     poisson_3d_27pt,
     random_spd_csr,
+    sherman1_tiled,
     uniform_random_csr,
 )
 
 __all__ = [
-    "COOArrays", "CSRMatrix", "DIAMatrix", "PerformanceWarning", "auto_route_for_solve",
-    "coo_from_arrays", "csr_from_coo", "dia_from_csr", "try_dia_from_csr",
+    "__version__", "COOArrays", "CSRMatrix", "DIAMatrix", "PerformanceWarning",
+    "auto_route_for_solve", "TripletMatrix", "coo_from_arrays", "csr_from_coo",
+    "csr_from_dense", "csr_from_triplet", "dia_from_csr", "try_dia_from_csr",
     "ELLMatrix", "ell_from_csr", "HYBMatrix", "hyb_from_csr", "WSellMatrix", "wsell_from_csr",
     "try_wsell_from_csr", "ReorderedMatrix", "permute_csr", "rcm_permutation",
     "reorder_to_wsell", "RoutedMatrix", "routed_from_csr", "try_routed_from_csr",
     "GridStencilMatrix", "try_grid_stencil_from_csr", "best_format", "stream_gather",
-    "MatrixLoadStatus", "MatrixMarketError", "load_matrix_csr", "load_matrix_df",
-    "dot", "norm2", "rmult", "rmult_add", "rmult_sub",
+    "MatrixLoadStatus", "MatrixMarketError", "load_matrix", "load_matrix_csr", "load_matrix_df",
+    "load_matrix_market", "load_smmdt", "save_dense_text",
+    "axpy", "dot", "norm2", "norm2_squared", "rmult", "rmult_add", "rmult_sub",
     "FactorizationError", "IdentityPreconditioner", "JacobiPreconditioner",
     "SGSPreconditioner", "ILU0Preconditioner", "IC0Preconditioner", "SolverPreconditioner",
     "get_preconditioner", "ChebyshevPreconditioner",
     "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient", "bicg_symmetric",
     "cgs", "conjugate_gradient_squared", "solve", "SolverConfig", "SOLVERS",
-    "cg_multi", "MultiSolveResult",
+    "cg_multi", "MultiSolveResult", "mixed_cg",
     "DfSolveResult", "DfDiaMatrix", "DfEllMatrix", "DfGridStencil", "df_from_host", "df_to_host",
     "df_operator_from_host_csr", "cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64",
     "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",
-    "poisson_3d", "poisson_3d_27pt", "random_spd_csr", "uniform_random_csr",
+    "poisson_3d", "poisson_3d_27pt", "random_spd_csr", "sherman1_tiled", "uniform_random_csr",
 ]

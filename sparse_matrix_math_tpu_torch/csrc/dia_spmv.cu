@@ -23,10 +23,22 @@
 // The plain PyTorch versions in ops/dia_spmv.py follow the same order, so
 // kernel and plain version agree bit for bit.
 //
+// Narrow diagonals (the mixed-precision solve, solvers/mixed.py): the padded
+// kernel also takes bfloat16 (or float16) diagonals with float32 x and y,
+// as the JAX kernels are traced for a bf16 diags3 and an f32 xp
+// (pallas_spmv.py:369-375).  Each stored value is widened exactly to float
+// (__bfloat162float, __half2float) and then multiplied and summed as in the
+// float32 kernel, the order of the JAX kernel, where bf16 * f32 promotes to
+// f32.  The diagonals are half of the f32 kernel's bytes: (ndiags * 2 + 8) B
+// per row.  Each thread reads its row's 2-byte values one by one, a 64-byte
+// transaction per warp and diagonal; wider loads are later work.
+//
 // Index math is 64-bit: d * n_total + e reaches 2^31 at 27 diagonals and
 // 80M rows.  Offsets arrive as a host array and travel as a kernel
 // parameter (at most kMaxDiags of them, the DIA format's max_diags).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,25 +55,33 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+// A stored diagonal value in the accumulation type: exact for every pair
+// instantiated below (float from bf16 or f16 drops no bit).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+
 // Padded layout: diags (ndiags, n_total), xp and y (n_total,).  Rows
 // outside [lead, lead + n_rows) are guard rows: they write an exact 0 and
 // read nothing.  The layout's guards (at least -min(offsets) before lead,
 // at least max(offsets) after the data) keep every read of an active row
-// in bounds, so no clamp is needed.
-template <typename T>
+// in bounds, so no clamp is needed.  TD is the diagonals' type, T that of
+// x, y and the sum.
+template <typename TD, typename T>
 __global__ void __launch_bounds__(kThreads)
-dia_padded_kernel(const T* __restrict__ diags, const T* __restrict__ xp,
+dia_padded_kernel(const TD* __restrict__ diags, const T* __restrict__ xp,
                   T* __restrict__ y, const Offsets offs, int ndiags,
                   long long n_total, long long lead, long long n_rows) {
   const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= n_total) return;
   T acc = T(0);
   if (e >= lead && e < lead + n_rows) {
-    acc = mul_rn(diags[e], __ldg(xp + e + offs.v[0]));
+    acc = mul_rn(widen(diags[e]), __ldg(xp + e + offs.v[0]));
 #pragma unroll
     for (int d = 1; d < kMaxDiags; ++d) {
       if (d >= ndiags) break;
-      const T a = diags[static_cast<long long>(d) * n_total + e];
+      const T a = widen(diags[static_cast<long long>(d) * n_total + e]);
       acc = add_rn(acc, mul_rn(a, __ldg(xp + e + offs.v[d])));
     }
   }
@@ -102,13 +122,14 @@ unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-template <typename T>
+template <typename TD, typename T>
 int launch_padded(const void* diags, const void* xp, void* y, const void* offsets,
                   int ndiags, long long n_total, long long lead, long long n_rows,
                   void* stream) {
   if (ndiags < 1 || ndiags > kMaxDiags) return static_cast<int>(cudaErrorInvalidValue);
-  dia_padded_kernel<T><<<blocks_for(n_total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(diags), static_cast<const T*>(xp), static_cast<T*>(y),
+  dia_padded_kernel<TD, T><<<blocks_for(n_total), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TD*>(diags), static_cast<const T*>(xp), static_cast<T*>(y),
       load_offsets(offsets, ndiags), ndiags, n_total, lead, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -132,13 +153,31 @@ extern "C" {
 int smm_dia_spmv_padded_f32(const void* diags, const void* xp, void* y, const void* offsets,
                             int ndiags, long long n_total, long long lead, long long n_rows,
                             void* stream) {
-  return launch_padded<float>(diags, xp, y, offsets, ndiags, n_total, lead, n_rows, stream);
+  return launch_padded<float, float>(diags, xp, y, offsets, ndiags, n_total, lead, n_rows,
+                                     stream);
 }
 
 int smm_dia_spmv_padded_f64(const void* diags, const void* xp, void* y, const void* offsets,
                             int ndiags, long long n_total, long long lead, long long n_rows,
                             void* stream) {
-  return launch_padded<double>(diags, xp, y, offsets, ndiags, n_total, lead, n_rows, stream);
+  return launch_padded<double, double>(diags, xp, y, offsets, ndiags, n_total, lead, n_rows,
+                                       stream);
+}
+
+// bfloat16 (or float16) diagonals, float32 xp and y: the mixed solve's
+// inner product
+int smm_dia_spmv_padded_bf16_f32(const void* diags, const void* xp, void* y,
+                                 const void* offsets, int ndiags, long long n_total,
+                                 long long lead, long long n_rows, void* stream) {
+  return launch_padded<__nv_bfloat16, float>(diags, xp, y, offsets, ndiags, n_total, lead,
+                                             n_rows, stream);
+}
+
+int smm_dia_spmv_padded_f16_f32(const void* diags, const void* xp, void* y,
+                                const void* offsets, int ndiags, long long n_total,
+                                long long lead, long long n_rows, void* stream) {
+  return launch_padded<__half, float>(diags, xp, y, offsets, ndiags, n_total, lead, n_rows,
+                                      stream);
 }
 
 int smm_dia_spmv_f32(const void* diags, const void* x, void* y, const void* offsets,

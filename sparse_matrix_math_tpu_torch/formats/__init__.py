@@ -1,11 +1,11 @@
-from .csr import CSRMatrix, csr_from_coo
+from .csr import CSRMatrix, csr_from_coo, csr_from_dense, csr_from_triplet
 from .dia import DIAMatrix, dia_from_csr, try_dia_from_csr
 from .ell import ELLMatrix, ell_from_csr
 from .hyb import HYBMatrix, hyb_from_csr
 from .reorder import ReorderedMatrix, permute_csr, rcm_permutation, reorder_to_wsell
 from .rsell import RoutedMatrix, routed_from_csr, try_routed_from_csr
 from .stencil import GridStencilMatrix, try_grid_stencil_from_csr, try_grid_stencil_from_dia
-from .triplet import COOArrays, coo_from_arrays
+from .triplet import COOArrays, TripletMatrix, coo_from_arrays
 from .wsell import WSellMatrix, try_wsell_from_csr, wsell_from_csr
 
 
@@ -135,7 +135,8 @@ def auto_route_for_solve(a, *, has_preconditioner: bool = False):
 
 
 __all__ = [
-    "CSRMatrix", "csr_from_coo", "DIAMatrix", "dia_from_csr", "try_dia_from_csr",
+    "CSRMatrix", "csr_from_coo", "csr_from_dense", "csr_from_triplet", "TripletMatrix",
+    "DIAMatrix", "dia_from_csr", "try_dia_from_csr",
     "ELLMatrix", "ell_from_csr", "HYBMatrix", "hyb_from_csr", "WSellMatrix",
     "wsell_from_csr", "try_wsell_from_csr", "ReorderedMatrix", "permute_csr",
     "rcm_permutation", "reorder_to_wsell", "COOArrays", "coo_from_arrays",

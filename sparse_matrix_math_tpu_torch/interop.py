@@ -49,9 +49,16 @@ def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
     )
 
 
-def dia_from_numpy(diags, offsets, shape, nnz, device) -> DIAMatrix:
-    """A :class:`DIAMatrix` from its (ndiags, rows) diagonals and offsets."""
+def dia_from_numpy(diags, offsets, shape, nnz, device, dtype=None) -> DIAMatrix:
+    """A :class:`DIAMatrix` from its (ndiags, rows) diagonals and offsets.
+
+    ``dtype`` casts the diagonals in torch, rounding to nearest even: NumPy
+    has no bfloat16, so bfloat16 diagonals (the mixed solve's low operator,
+    ``dataclasses.replace(pad_dia(a), diags_p=...)``) are made from the
+    float32 arrays here, bit for bit what the JAX package's ``astype`` holds."""
     diags = torch.tensor(np.asarray(diags), device=device)
+    if dtype is not None:
+        diags = diags.to(dtype)
     offsets = tuple(int(o) for o in offsets)
     if diags.ndim != 2 or diags.shape[0] != len(offsets):
         raise ValueError(f"diags of shape {tuple(diags.shape)} for {len(offsets)} offsets")

@@ -1,14 +1,18 @@
 """Matrix Market loader with the reference's accepted grammar.
 
-Port of the pure-Python parser of
-``sparse_matrix_math_tpu/io/matrix_market.py:37-181``
+Port of ``sparse_matrix_math_tpu/io/matrix_market.py:37-181``
 (reference ``loadMatrixMarketMatrix``, include/sparse_matrix_math.h:2524-2609):
 ``%%MatrixMarket matrix coordinate real|integer symmetric`` (``general`` too
 with ``allow_general=True``), ``%`` comment lines, a ``rows cols nnz`` size
 line, then 1-based ``row col value`` triplets; symmetric off-diagonal
 entries are mirrored.  Failures raise :class:`MatrixMarketError` with the
-reference's :class:`MatrixLoadStatus` codes (h:2507-2522).  The JAX
-package's native C++ parser is not bound yet.
+reference's :class:`MatrixLoadStatus` codes (h:2507-2522).
+
+:func:`load_matrix_market` fills a :class:`TripletMatrix` from a path or a
+file object with the Python parser; :func:`load_matrix_market_coo`, the bulk
+path of ``load_matrix_csr``, tries the native parser first
+(``native.mtx_read``, ``csrc/smm_native.cpp``) and falls back to the Python
+one when the library is unavailable, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ from typing import TextIO, Union
 import numpy as np
 import torch
 
-from ..formats.triplet import COOArrays, coo_from_arrays
+from ..formats.triplet import COOArrays, TripletMatrix, coo_from_arrays
 
-__all__ = ["MatrixLoadStatus", "MatrixMarketError", "load_matrix_market_coo"]
+__all__ = ["MatrixLoadStatus", "MatrixMarketError", "load_matrix_market",
+           "load_matrix_market_coo"]
 
 
 class MatrixLoadStatus(enum.IntEnum):
@@ -41,11 +46,7 @@ class MatrixMarketError(IOError):
         self.status = status
 
 
-def load_matrix_market_coo(path: Union[str, os.PathLike], *, allow_general: bool = False,
-                           dtype=torch.float64, device) -> COOArrays:
-    """Parse a Matrix Market file into sorted, duplicate-summed
-    :class:`COOArrays` on ``device``.  Duplicates sum in float64 before the
-    cast to ``dtype``, as the reference's double-valued triplet map does."""
+def _parse_path(path, allow_general: bool):
     try:
         f = open(path, "r")
     except OSError as e:
@@ -53,7 +54,41 @@ def load_matrix_market_coo(path: Union[str, os.PathLike], *, allow_general: bool
             MatrixLoadStatus.FAILED_TO_OPEN_FILE, f"cannot open {path}: {e}"
         ) from e
     with f:
-        rows, cols, vals, shape = _parse(f, allow_general)
+        return _parse(f, allow_general)
+
+
+def load_matrix_market(path_or_file: Union[str, os.PathLike, TextIO], *,
+                       allow_general: bool = False, dtype=torch.float64) -> TripletMatrix:
+    """Parse a Matrix Market file (a path or an open text file) into a
+    :class:`TripletMatrix`.  Symmetric off-diagonal entries are mirrored
+    (h:2596-2601), so the result holds full storage, as the reference's."""
+    if hasattr(path_or_file, "read"):
+        rows, cols, vals, shape = _parse(path_or_file, allow_general)
+    else:
+        rows, cols, vals, shape = _parse_path(path_or_file, allow_general)
+    m = TripletMatrix(*shape, dtype=dtype)
+    for r, c, v in zip(rows, cols, vals):
+        m.add_entry(r, c, v)
+    return m
+
+
+def load_matrix_market_coo(path: Union[str, os.PathLike], *, allow_general: bool = False,
+                           dtype=torch.float64, device) -> COOArrays:
+    """Parse a Matrix Market file into sorted, duplicate-summed
+    :class:`COOArrays` on ``device``: the native parser when its library
+    loads, else the Python one.  Duplicates sum in float64 before the cast
+    to ``dtype``, as the reference's double-valued triplet map does."""
+    from .. import native
+
+    try:
+        parsed = native.mtx_read(str(path), allow_general)
+    except native.MtxNativeError as e:
+        raise MatrixMarketError(MatrixLoadStatus(e.status), str(e)) from e
+    if parsed is not None:
+        n_rows, n_cols, rows, cols, vals = parsed
+        shape = (n_rows, n_cols)
+    else:
+        rows, cols, vals, shape = _parse_path(path, allow_general)
     coo = coo_from_arrays(rows, cols, vals, shape, device=device, dtype=np.float64)
     return COOArrays(rows=coo.rows, cols=coo.cols, vals=coo.vals.to(dtype), shape=shape)
 

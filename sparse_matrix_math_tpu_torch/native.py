@@ -13,7 +13,8 @@ the W-SELL layout routines ``smm_wsell_plan``, ``smm_wsell_emit`` and
 ``smm_wsell_color`` (native/__init__.py:175-185, 288-311, 462-523), and the
 R-SELL routed-chain routines ``smm_stream_pack_cf``, ``smm_sort_perm``,
 ``smm_stream_group``, ``smm_stream_emit`` and ``smm_stream_level``
-(native/__init__.py:150-174, 312-460).
+(native/__init__.py:150-174, 312-460), and the Matrix Market parser
+``smm_mtx_header`` / ``smm_mtx_read`` (native/__init__.py:132-145, 249-285).
 
 Like the JAX binding, a missing compiler or a failed build leaves the
 library unavailable: each call then returns None, and its caller falls back
@@ -34,7 +35,7 @@ import numpy as np
 
 __all__ = ["available", "library", "ic0_factorize", "ilu0_factorize", "wsell_plan",
            "wsell_emit", "wsell_color", "stream_pack_cf", "sort_perm", "stream_group",
-           "stream_emit", "stream_level", "SOURCE"]
+           "stream_emit", "stream_level", "mtx_read", "MtxNativeError", "SOURCE"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG / "csrc" / "smm_native.cpp"
@@ -117,6 +118,13 @@ def library() -> Optional[ctypes.CDLL]:
                                     _i64p, _i64p, ctypes.c_void_p, _i32p, _i64p]
     lib.smm_stream_level.restype = c64
     lib.smm_stream_level.argtypes = [c64] * 8 + [_i64p] * 10
+    c64p = ctypes.POINTER(c64)
+    lib.smm_mtx_header.restype = ctypes.c_int
+    lib.smm_mtx_header.argtypes = [ctypes.c_char_p, c64p, c64p, c64p,
+                                   ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.smm_mtx_read.restype = ctypes.c_int
+    lib.smm_mtx_read.argtypes = [ctypes.c_char_p, ctypes.c_int, c64, _i64p, _i64p, _f64p,
+                                 c64p, c64p]
     return lib
 
 
@@ -174,6 +182,41 @@ def ilu0_factorize(indptr, indices, diag_pos, data, pivot_tol: float = 0.0
     if rc != 0:
         raise RuntimeError(f"smm_ilu0_factorize returned {rc}")
     return factor
+
+
+class MtxNativeError(ValueError):
+    """A Matrix Market file the native parser refused; ``status`` is the
+    reference's MatrixLoadStatus code (1 open, 3 parse, 4 unsupported)."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+
+
+def mtx_read(path: str, allow_general: bool):
+    """Parse a Matrix Market file natively: ``(n_rows, n_cols, rows, cols,
+    vals)`` with 0-based int64 indices, float64 values and symmetric
+    entries mirrored, or None when the library is unavailable.  Raises
+    :class:`MtxNativeError` on a file it refuses."""
+    lib = library()
+    if lib is None:
+        return None
+    rows, cols, nnz = ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int64(0)
+    sym = ctypes.c_int(0)
+    rc = lib.smm_mtx_header(path.encode(), ctypes.byref(rows), ctypes.byref(cols),
+                            ctypes.byref(nnz), ctypes.byref(sym), int(allow_general))
+    if rc != 0:
+        raise MtxNativeError(rc, f"header parse failed for {path}")
+    cap = max(2 * nnz.value, 1)
+    r, c = np.empty(cap, np.int64), np.empty(cap, np.int64)
+    v = np.empty(cap, np.float64)
+    count, bad_line = ctypes.c_int64(0), ctypes.c_int64(0)
+    rc = lib.smm_mtx_read(path.encode(), int(allow_general), cap, r, c, v,
+                          ctypes.byref(count), ctypes.byref(bad_line))
+    if rc != 0:
+        raise MtxNativeError(rc, f"parse failed at {path}:{bad_line.value}")
+    k = count.value
+    return int(rows.value), int(cols.value), r[:k], c[:k], v[:k]
 
 
 def _i64(a) -> np.ndarray:

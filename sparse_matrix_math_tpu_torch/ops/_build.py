@@ -40,6 +40,8 @@ _SIGNATURES = {
     # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, stream
     "smm_dia_spmv_padded_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
     "smm_dia_spmv_padded_f64": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
+    "smm_dia_spmv_padded_bf16_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
+    "smm_dia_spmv_padded_f16_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
     # diags, x, y, offsets, ndiags, n_rows, n_cols, stream
     "smm_dia_spmv_f32": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     "smm_dia_spmv_f64": [_P, _P, _P, _P, _I, _LL, _LL, _P],

@@ -11,6 +11,13 @@ are ``csrc/dia_spmv.cu`` (its header says what bounds them on the card):
 * :func:`dia_spmv_streamed` (K3, TPU ``_dia_streamed_kernel``) — the same
   kernel as K2: the card reads x through its L2 at every size.
 
+K2/K3 also take a :class:`PaddedDIA` whose diagonals are stored in bfloat16
+(or float16) with a float32 ``xp``, the call shape of the mixed-precision
+solve (``solvers/mixed.py``; JAX ``mixed.py:207-219``): each value is widened
+exactly, the sum runs in float32 and ``y`` takes ``xp``'s dtype.  Those
+launches count under their own keys (``dia_spmv_padded_bf16``,
+``dia_spmv_padded_f16``).
+
 A wrapper given CPU tensors runs the kernel's plain version; given CUDA
 tensors it launches the kernel or raises.  Each launch adds one to
 :data:`launches`.
@@ -34,9 +41,16 @@ __all__ = [
 _BLOCK = 128  # guard granularity, as the TPU layout's lane width
 _MAX_DIAGS = 64  # kMaxDiags in csrc/dia_spmv.cu; DIA's own max_diags
 _DTYPES = (torch.float32, torch.float64)
+# narrow diagonal dtypes of the padded kernel (float32 x and y): the C entry
+# and the launch counter of each
+_NARROW = {
+    torch.bfloat16: ("smm_dia_spmv_padded_bf16_f32", "dia_spmv_padded_bf16"),
+    torch.float16: ("smm_dia_spmv_padded_f16_f32", "dia_spmv_padded_f16"),
+}
 
 # Kernel launches per wrapper, counted where the kernel is launched.
-launches = {"dia_spmv": 0, "dia_spmv_padded": 0}
+launches = {"dia_spmv": 0, "dia_spmv_padded": 0, "dia_spmv_padded_bf16": 0,
+            "dia_spmv_padded_f16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,7 +67,9 @@ class PaddedDIA:
     trailing guard blocks.  The leading guard is at least ``-min(offsets)``
     and never empty; the trailing one covers ``max(offsets)``; guard
     elements stay exactly zero through the kernel, axpys and dots.
-    ``diags_p[d, e]`` is the coefficient of row ``e - lead``.
+    ``diags_p[d, e]`` is the coefficient of row ``e - lead``.  ``dtype`` is
+    the diagonals' (bfloat16 for the mixed solve's low operator, whose
+    vectors stay float32): vectors follow the right-hand side, never it.
     """
 
     diags_p: torch.Tensor  # (ndiags, n_total)
@@ -139,12 +155,13 @@ def dia_spmv_plain(diags: torch.Tensor, offsets, shape, x: torch.Tensor) -> torc
 def dia_spmv_padded_plain(diags_p: torch.Tensor, offsets, lead: int, n_rows: int,
                           xp: torch.Tensor) -> torch.Tensor:
     """Plain K2/K3: rows in ``[lead, lead + n_rows)`` sum their terms in
-    ascending-offset order; every other row is an exact 0."""
+    ascending-offset order; every other row is an exact 0.  Narrow
+    diagonals are widened exactly to ``xp``'s dtype first."""
     y = torch.zeros_like(xp)
     rows = slice(lead, lead + n_rows)
     acc = None
     for d, off in enumerate(offsets):
-        term = diags_p[d, rows] * xp[lead + off:lead + off + n_rows]
+        term = diags_p[d, rows].to(xp.dtype) * xp[lead + off:lead + off + n_rows]
         acc = term if acc is None else acc + term
     y[rows] = acc
     return y
@@ -153,15 +170,19 @@ def dia_spmv_padded_plain(diags_p: torch.Tensor, offsets, lead: int, n_rows: int
 # -- wrappers ------------------------------------------------------------------
 
 
-def _check(diags: torch.Tensor, x: torch.Tensor, x_len: int, offsets) -> None:
+def _check(diags: torch.Tensor, x: torch.Tensor, x_len: int, offsets,
+           narrow: bool = False) -> None:
+    """Refuse what the kernels do not take; ``narrow`` admits the padded
+    kernel's bfloat16/float16 diagonals with a float32 x."""
     if diags.device != x.device:
         raise ValueError(f"diagonals on {diags.device} but x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if diags.dtype != x.dtype or x.dtype not in _DTYPES:
+    mixed = narrow and diags.dtype in _NARROW and x.dtype == torch.float32
+    if not mixed and (diags.dtype != x.dtype or x.dtype not in _DTYPES):
         raise TypeError(
-            f"diagonals ({diags.dtype}) and x ({x.dtype}) must both be float32 "
-            "or both float64"
+            f"diagonals ({diags.dtype}) and x ({x.dtype}) must both be float32 or both "
+            "float64" + (", or bfloat16/float16 diagonals with a float32 x" if narrow else "")
         )
     if x.shape != (x_len,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({x_len},)")
@@ -193,23 +214,28 @@ def dia_spmv(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def dia_spmv_padded(a: PaddedDIA, xp: torch.Tensor) -> torch.Tensor:
     """K2: y = A @ x with x and y in the padded layout; guard rows of y are
-    exactly 0."""
-    _check(a.diags_p, xp, a.n_total, a.offsets)
+    exactly 0.  Diagonals in bfloat16 or float16 take a float32 ``xp``."""
+    _check(a.diags_p, xp, a.n_total, a.offsets, narrow=True)
     if xp.device.type == "cpu":
         return dia_spmv_padded_plain(a.diags_p, a.offsets, a.lead, a.shape[0], xp)
     from . import _build
 
     lib = _build.library()
-    fn = (lib.smm_dia_spmv_padded_f32 if xp.dtype == torch.float32
-          else lib.smm_dia_spmv_padded_f64)
+    if a.diags_p.dtype in _NARROW:
+        entry, counter = _NARROW[a.diags_p.dtype]
+    else:
+        entry = ("smm_dia_spmv_padded_f32" if xp.dtype == torch.float32
+                 else "smm_dia_spmv_padded_f64")
+        counter = "dia_spmv_padded"
+    fn = getattr(lib, entry)
     y = torch.empty(a.n_total, dtype=xp.dtype, device=xp.device)
     offs = np.asarray(a.offsets, dtype=np.int32)
     with torch.cuda.device(xp.device):
         code = fn(a.diags_p.data_ptr(), xp.data_ptr(), y.data_ptr(), offs.ctypes.data,
                   len(a.offsets), a.n_total, a.lead, a.shape[0],
                   torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "dia_spmv_padded")
-    launches["dia_spmv_padded"] += 1
+    _build.check(code, counter)
+    launches[counter] += 1
     return y
 
 

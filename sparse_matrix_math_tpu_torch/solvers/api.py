@@ -10,11 +10,16 @@ one-call API for users coming from the reference's ``SolverStatus f(A, b, x,
 A 2-D ``b`` of shape ``(n, m)`` goes to :func:`~.block.cg_multi` (method
 ``cg`` only) and returns a :class:`~.block.MultiSolveResult`.
 
+``matrix_dtype`` (e.g. ``"bfloat16"``) goes to :func:`~.mixed.mixed_cg`:
+method ``cg`` only, no preconditioner, no residual trace; with
+``auto_format`` a grid stencil is laid out as DIA for it, and a stencil of at
+most 9 diagonals draws a :class:`PerformanceWarning` (PERF.md has the card's
+numbers).
+
 What :func:`solve` dispatches to in the JAX package and the port does not
 hold yet raises ``NotImplementedError`` naming its ROADMAP item: the methods
 ``chebyshev``, ``cg_pipelined`` and ``gmres`` and
-``preconditioner="multigrid"`` (Queue 1, the solver tail), and
-``matrix_dtype`` (``mixed_cg``; Queue 1, the precision variants).  Their names
+``preconditioner="multigrid"`` (Queue 1, the solver tail).  Their names
 stay in :data:`SOLVERS`' error message, so an unknown method still raises
 ``ValueError`` as in the JAX package.
 """
@@ -48,7 +53,9 @@ SOLVERS = {
 # methods of the JAX package's table that the port does not hold yet
 _NOT_PORTED = ("chebyshev", "cg_pipelined", "gmres")
 _SOLVER_TAIL = "ROADMAP.md, Queue 1, the solver tail"
-_PRECISION_VARIANTS = "ROADMAP.md, Queue 1, the precision variants"
+# mixed_cg on a stencil of at most this many diagonals draws a
+# PerformanceWarning (the JAX package's threshold, api.py:323)
+_NARROW_STENCIL = 9
 
 # double-word methods (solvers/df64.py, solvers/ir_df64.py): a branch of
 # their own in solve(), with other operator and result types (DfSolveResult)
@@ -135,8 +142,7 @@ class SolverConfig:
     preconditioner_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
     record_residuals: bool = False
     # stream the MATRIX in this dtype (e.g. "bfloat16") with f32 vectors and
-    # true-residual refinement (the JAX package's solvers/mixed.py; not
-    # ported yet)
+    # true-residual refinement (solvers/mixed.py, mixed_cg)
     matrix_dtype: Optional[str] = None
     # convert a CSR input through formats.best_format before solving (grid
     # stencil / DIA / W-SELL / RCM + W-SELL / R-SELL / CSR by pattern).  Off
@@ -186,9 +192,11 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
         a = best_format(a)
         if isinstance(a, GridStencilMatrix) and (
-                str(cfg.preconditioner).lower() in _SGS_KINDS + ("ilu0", "ic0")):
-            # these ride the DIA machinery (PaddedSGS, the padded factor
-            # applies); the matrix-free stencil stores no factors: keep DIA
+                cfg.matrix_dtype is not None
+                or str(cfg.preconditioner).lower() in _SGS_KINDS + ("ilu0", "ic0")):
+            # these ride the DIA machinery (the bf16 diagonal stream,
+            # PaddedSGS, the padded factor applies); the matrix-free stencil
+            # has no matrix stream to retype and stores no factors: keep DIA
             dia = try_dia_from_csr(a_source)
             if dia is not None:
                 a = dia
@@ -208,9 +216,7 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         return cg_multi(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
                         preconditioner=precond, record_residuals=cfg.record_residuals)
     if cfg.matrix_dtype is not None:
-        raise NotImplementedError(
-            f"matrix_dtype goes to mixed_cg (solvers/mixed.py), which is not ported yet "
-            f"({_PRECISION_VARIANTS})")
+        return _solve_mixed(a, b, x0, cfg, method)
     kwargs: Dict[str, Any] = dict(max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
                                   record_residuals=cfg.record_residuals)
     if not _is_none(cfg.preconditioner):
@@ -238,6 +244,35 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         if esc is not None:
             return esc
     return res
+
+
+def _solve_mixed(a, b, x0, cfg: SolverConfig, method: str):
+    """The bfloat16-matrix branch (JAX ``api.py:307-356``): ``mixed_cg``."""
+    import warnings
+
+    from ..formats import PerformanceWarning
+    from .mixed import mixed_cg
+
+    if method not in ("cg", "conjugate_gradient"):
+        raise ValueError("matrix_dtype (mixed precision) is supported for method='cg' only")
+    ndiags = len(getattr(a, "offsets", ())) or None
+    if ndiags is not None and ndiags <= _NARROW_STENCIL:
+        # the rule of the JAX package: on a narrow stencil the refinement's
+        # extra rounds and products can outweigh the halved diagonal bytes
+        warnings.warn(
+            f"matrix_dtype={cfg.matrix_dtype!r} on a narrow {ndiags}-diagonal stencil: "
+            f"on stencils of at most {_NARROW_STENCIL} diagonals the mixed solve can be "
+            "SLOWER than plain f32 CG at matched true accuracy (the bf16 stream halves "
+            "only the diagonals' bytes, and refinement adds rounds); PERF.md has the "
+            "measurements on the card.  Drop matrix_dtype to use the f32 path.",
+            PerformanceWarning, stacklevel=3)
+    if not _is_none(cfg.preconditioner):
+        raise ValueError("matrix_dtype does not compose with a preconditioner yet")
+    if cfg.record_residuals:
+        raise ValueError("mixed_cg does not record residual traces (the outer loop only "
+                         "tracks true-residual checkpoints)")
+    return mixed_cg(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                    matrix_dtype=cfg.matrix_dtype)
 
 
 def _is_none(pre) -> bool:

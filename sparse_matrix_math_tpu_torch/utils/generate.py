@@ -1,6 +1,6 @@
 """Model-problem matrix generators.
 
-Port of ``sparse_matrix_math_tpu/utils/generate.py:28-289, 362-389``: the
+Port of ``sparse_matrix_math_tpu/utils/generate.py:28-389``: the
 same NumPy construction, the same random draws and the same values, returned
 as a :class:`CSRMatrix` on the device the caller names.
 """
@@ -18,7 +18,7 @@ from ..formats.triplet import host_coo_arrays
 __all__ = [
     "laplace_1d", "poisson_2d", "poisson_3d", "poisson_3d_27pt",
     "convection_diffusion_2d", "laplace_3d_jittered", "uniform_random_csr",
-    "random_spd_csr",
+    "random_spd_csr", "sherman1_tiled",
 ]
 
 
@@ -198,3 +198,42 @@ def random_spd_csr(n: int, density: float = 0.05, seed: int = 0, dtype=torch.flo
     diag = np.arange(n, dtype=np.int64)
     return _sorted_csr(np.concatenate([rr, diag]), np.concatenate([cc, diag]),
                        np.concatenate([vv, row_abs + 1.0]), (n, n), dtype, device)
+
+
+def sherman1_tiled(copies: int, seed: int = 0, dtype=torch.float64, mtx_path: str = None,
+                   jitter: bool = True, *, device) -> CSRMatrix:
+    """Block-diagonal copies of the sherman1 pattern (an oil-reservoir
+    matrix of the Harwell-Boeing collection) with each copy's off-diagonal
+    columns moved by a seeded integer in ``[-2, 2]``: an unstructured
+    pattern at benchmark scale.  ``jitter=False`` keeps every copy on
+    sherman1's own pattern.  The diagonal stays in place, as the
+    factorization preconditioners need it.
+
+    ``mtx_path`` names the sherman1 ``.mtx`` file, else the
+    ``SMM_SHERMAN1_MTX`` environment variable does; the package ships no
+    copy, and a missing file raises FileNotFoundError."""
+    import os
+
+    from ..io import load_matrix_csr
+
+    if mtx_path is None:
+        mtx_path = os.environ.get("SMM_SHERMAN1_MTX")
+    if mtx_path is None or not os.path.exists(mtx_path):
+        raise FileNotFoundError(
+            f"sherman1 seed matrix not found at {mtx_path!r}; pass mtx_path= or set "
+            "SMM_SHERMAN1_MTX")
+    a = load_matrix_csr(mtx_path, device="cpu")
+    r0, c0, v0 = a.row_ids.numpy(), a.indices.numpy(), a.data.numpy()
+    nb = a.shape[0]
+    rng = np.random.default_rng(seed)
+    diag0 = c0 == r0
+    rs, cs, vs = [], [], []
+    for k in range(copies):
+        c = c0
+        if jitter:
+            c = np.where(diag0, c0, np.clip(c0 + rng.integers(-2, 3, c0.shape[0]), 0, nb - 1))
+        rs.append(r0 + k * nb)
+        cs.append(c + k * nb)
+        vs.append(v0)
+    return _summed_csr(np.concatenate(rs), np.concatenate(cs), np.concatenate(vs),
+                       nb * copies, dtype, device)

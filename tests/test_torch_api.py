@@ -175,7 +175,6 @@ def test_unknown_method_lists_every_name():
     ("gmres", dict(method="gmres")),
     ("chebyshev", dict(method="chebyshev")),
     ("cg_pipelined", dict(method="cg_pipelined")),
-    ("matrix_dtype", dict(matrix_dtype="bfloat16")),
     ("multigrid", dict(preconditioner="multigrid")),
     ("mg", dict(preconditioner="mg", auto_format=True)),
 ])

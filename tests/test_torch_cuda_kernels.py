@@ -9,6 +9,8 @@ order, so they are compared for equality (both words of the double-word
 kernel too).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -91,6 +93,71 @@ def test_wrappers_raise_on_cuda(cuda_device):
         K.dia_spmv(a, x.float())
     with pytest.raises(ValueError):
         K.dia_spmv(a, x.cpu())
+
+
+# 5, 7 and 27 diagonals; n = 1369, 216, 343, 2601: none a multiple of the
+# kernel's 256-row block
+NARROW_CASES = [("poisson_2d", (37,)), ("poisson_3d", (6,)), ("poisson_3d_27pt", (7,)),
+                ("convection_diffusion_2d", (51,))]
+
+
+@pytest.mark.parametrize("diag_dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("name,args", NARROW_CASES, ids=[f"{n}{a}" for n, a in NARROW_CASES])
+def test_narrow_diagonal_kernel_matches_plain(cuda_device, name, args, diag_dtype):
+    """K2's bf16/f16-diagonal instantiation (the mixed solve's inner
+    product) against its plain version, bit for bit, guard rows exactly 0,
+    on diagonals rounded from values with full float32 mantissas."""
+    a = _dia(name, args, torch.float32, cuda_device)
+    rng = np.random.default_rng(5)
+    scale = torch.as_tensor(1.0 + 0.3 * rng.standard_normal(a.diags.shape),
+                            device=cuda_device).float()
+    p = K.pad_dia(smm.DIAMatrix(diags=(a.diags * scale).to(diag_dtype), offsets=a.offsets,
+                                shape=a.shape, nnz=a.nnz))
+    xp = p.to_padded(torch.as_tensor(rng.standard_normal(a.shape[1]), device=cuda_device).float())
+    key = "dia_spmv_padded_bf16" if diag_dtype == torch.bfloat16 else "dia_spmv_padded_f16"
+    before = dict(K.launches)
+    yp = K.dia_spmv_padded(p, xp)
+    torch.cuda.synchronize()
+    assert yp.dtype == torch.float32
+    assert bits_equal(yp, K.dia_spmv_padded_plain(p.diags_p, p.offsets, p.lead, a.shape[0], xp))
+    assert torch.all(yp[:p.lead] == 0) and torch.all(yp[p.lead + a.shape[0]:] == 0)
+    assert K.launches[key] == before[key] + 1
+    assert K.launches["dia_spmv_padded"] == before["dia_spmv_padded"]
+
+
+def test_narrow_diagonal_wrapper_raises_on_cuda(cuda_device):
+    """Only the instantiated pairs launch: other diagonal dtypes, and bf16
+    diagonals with a float64 x, raise TypeError before any launch."""
+    a = _dia("poisson_2d", (7,), torch.float32, cuda_device)
+    p = K.pad_dia(a)
+    xp = torch.ones(p.n_total, dtype=torch.float32, device=cuda_device)
+    before = dict(K.launches)
+    for diags in (p.diags_p.to(torch.int32), p.diags_p.to(torch.float8_e4m3fn)):
+        with pytest.raises(TypeError, match="float32"):
+            K.dia_spmv_padded(dataclasses.replace(p, diags_p=diags), xp)
+    with pytest.raises(TypeError, match="float32"):
+        K.dia_spmv_padded(dataclasses.replace(p, diags_p=p.diags_p.to(torch.bfloat16)),
+                          xp.double())
+    assert K.launches == before
+
+
+def test_mixed_cg_matches_cpu(cuda_device):
+    """mixed_cg on the card (K2 f32 for the true residuals, the bf16
+    instantiation in the inner solve) against the same solve on the CPU
+    (plain versions): the same status and iteration count."""
+    res, launched = {}, {}
+    b = np.random.default_rng(2).standard_normal(24 * 24)
+    for dev in ("cpu", cuda_device):
+        a = _dia("poisson_2d", (24,), torch.float32, dev)
+        before = dict(K.launches)
+        res[str(dev)] = smm.mixed_cg(a, torch.as_tensor(b, device=dev).float(), epsilon=1e-4)
+        launched[str(dev)] = {k: K.launches[k] - before[k] for k in K.launches}
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+    assert gpu.iterations == cpu.iterations
+    assert all(v == 0 for v in launched["cpu"].values())
+    n = launched[str(cuda_device)]
+    assert n["dia_spmv_padded_bf16"] >= gpu.iterations and n["dia_spmv_padded"] >= 3
 
 
 def _padded_rhs(pre, dtype, device, seed=0):
