@@ -10,8 +10,11 @@ nvcc, one process per source, and the native
 factorizations and W-SELL / R-SELL layout routines (``csrc/smm_native.cpp``)
 with g++, side by side.  Phase A holds each DIA kernel wrapper against its plain
 PyTorch version on the card, in f32 and f64, at the systems the solve paths
-meet (up to the 243^3 Poisson system, 14.3M rows and 100M nnz), with
-timings: the DIA SpMV kernels, then the fused SGS (K4) and IC(0)/ILU(0) (K5)
+meet (up to the 243^3 Poisson system, 14.3M rows and 100M nnz; K2/K3 bit
+for bit), with
+timings: the DIA SpMV kernels (K2/K3 from a captured CUDA graph, with the
+kernel and tile the rule of ``ops/dia_spmv.py:staged_plan`` takes: the
+staged kernel or one thread per row), then the fused SGS (K4) and IC(0)/ILU(0) (K5)
 sweep applies at 1, 2 and 4 sweeps, each with the variant the rule of
 ``ops/trisweep.py:window_tile`` takes (halo-window kernels or the
 large-reach per-sweep kernels), timed from a captured CUDA graph.  Phase B resets the launch counters,
@@ -121,6 +124,15 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / _HBM_BYTES_PER_S * 1e3
 
 
+def k2_bytes(p, x_itemsize: int) -> int:
+    """Device bytes one K2/K3 product must move, in every dtype: each active
+    row's diagonal values and x once, y written over the whole layout
+    (guard rows are written as zeros)."""
+    n = p.shape[0]
+    return (len(p.offsets) * n * p.diags_p.element_size() + n * x_itemsize
+            + p.n_total * x_itemsize)
+
+
 def library_csr(torch, data, indices, indptr, shape):
     """The same matrix as ``torch.sparse_csr_tensor``, the yardstick whose
     ``@`` is timed beside a kernel (the port never calls it)."""
@@ -161,6 +173,7 @@ def phase_a(smm, K, torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     stats = {k: {"err": 0.0} for k in ("dia_spmv", "dia_spmv_padded", "sgs_apply",
                                         "tri_pair_apply")}
+    stats["dia_spmv_padded"]["cases"] = {}
     for label, make, args in systems:
         t0 = time.perf_counter()
         csr = make(*args, device=dev)
@@ -191,21 +204,42 @@ def phase_a(smm, K, torch, dev):
                 torch.cuda.synchronize()
                 abs_err = (y - y_ref).abs().max().item()
                 rel_err = abs_err / max(y_ref.abs().max().item(), 1e-300)
-                require(bool(torch.isfinite(y).all()) and rel_err <= _TOL[name],
-                        f"{kname} {name}: max rel err {rel_err:.3e} <= {_TOL[name]:.0e}"
-                        f" (max abs err {abs_err:.3e})")
-                if kname != "dia_spmv":
+                if kname == "dia_spmv":
+                    require(bool(torch.isfinite(y).all()) and rel_err <= _TOL[name],
+                            f"{kname} {name}: max rel err {rel_err:.3e} <= {_TOL[name]:.0e}"
+                            f" (max abs err {abs_err:.3e})")
+                else:
+                    # K2/K3: the kernel the rule took, bit for bit its plain version
+                    require(bool(torch.isfinite(y).all()) and bits_equal(torch, y, y_ref),
+                            f"{kname} {name}: bit for bit its plain version (max rel err "
+                            f"{rel_err:.3e}, max abs err {abs_err:.3e})")
                     lead = p.lead
                     require(bool((y[:lead] == 0).all()) and bool((y[lead + n_rows:] == 0).all()),
                             f"{kname} {name}: guard rows exactly 0")
                 bucket = "dia_spmv" if kname == "dia_spmv" else "dia_spmv_padded"
                 stats[bucket]["err"] = max(stats[bucket]["err"], abs_err)
-                ms, plain_ms = median_ms(kern), median_ms(plain)
-                nbytes = (len(a.offsets) + 2) * n_rows * a.diags.element_size()
-                print(f"  {kname} {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-                      f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)")
+                plain_ms = median_ms(plain)
+                if kname == "dia_spmv":
+                    ms = median_ms(kern)
+                    nbytes = (len(a.offsets) + 2) * n_rows * a.diags.element_size()
+                    extra = {}
+                    print(f"  {kname} {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+                          f"GB/s), plain {plain_ms:.4f} ms")
+                else:
+                    # K2/K3 from a CUDA graph, the wrapper beside it; the
+                    # kernel and tile the rule of ops/dia_spmv.py staged_plan took
+                    ms, wrapper_ms = graph_ms(torch, kern), median_ms(kern)
+                    nbytes = k2_bytes(p, a.diags.element_size())
+                    extra = {"wrapper_ms": wrapper_ms, "variant": K.variant(p, dev)}
+                    print(f"  {kname} {name}: {extra['variant']}: graph {ms:.4f} ms "
+                          f"({nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms(nbytes) / ms:.0f}% "
+                          f"of the {bound_ms(nbytes):.4f} ms bound), through the wrapper "
+                          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms")
+                    stats[bucket]["cases"][f"{kname} {label} {name}"] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes), **extra}
                 if label == "poisson_2d(1414)" and name == "float32" and kname in stats:
-                    stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
+                    stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                                        **extra)
             if name == "float32" and label in ("poisson_2d(1414)", "poisson_3d(243)"):
                 lib = library_csr(torch, csr.data.to(dtype), csr.indices, csr.indptr, csr.shape)
                 lib_ms = median_ms(lambda: lib @ x)
@@ -1727,12 +1761,14 @@ def phase_h(smm, K, loop, torch, dev):
         lib = library_csr(torch, csr.data, csr.indices, csr.indptr, csr.shape)
         lib_ms = median_ms(lambda: lib @ x)
         del lib
-        lo_bytes, hi_bytes = (nd * 2 + 8) * p_hi.n_total, (nd * 4 + 8) * p_hi.n_total
+        lo_bytes, hi_bytes = k2_bytes(p_lo, 4), k2_bytes(p_hi, 4)
         case = {"n": n, "ndiags": nd, "n_total": p_hi.n_total, "ms": ms, "f32_ms": f32_ms,
                 "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound_ms(lo_bytes), "f32_bound_ms": bound_ms(hi_bytes),
-                "err": err}
-        print(f"  K2 bf16 {label}: {nd} diagonals, n_total {p_hi.n_total}: graph {ms:.4f} ms "
+                "err": err, "variant": K.variant(p_lo, dev),
+                "f32_variant": K.variant(p_hi, dev)}
+        print(f"  K2 bf16 {label}: {case['variant']} (f32: {case['f32_variant']}): "
+              f"{nd} diagonals, n_total {p_hi.n_total}: graph {ms:.4f} ms "
               f"({lo_bytes / ms / 1e6:.0f} GB/s, {100 * case['bound_ms'] / ms:.0f}% of the "
               f"{case['bound_ms']:.4f} ms bound, {lo_bytes / 1e6:.1f} MB); f32 K2 graph "
               f"{f32_ms:.4f} ms ({100 * case['f32_bound_ms'] / f32_ms:.0f}% of "
@@ -1828,7 +1864,7 @@ def phase_h(smm, K, loop, torch, dev):
     stats["launches"] = launched_lo
     first = stats["cases"]["poisson_2d(1414)"]
     stats.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                         "f32_ms", "wrapper_ms")})
+                                         "f32_ms", "wrapper_ms", "variant")})
     print(f"phase H took {time.perf_counter() - t_start:.1f} s")
     return stats
 
@@ -1919,16 +1955,23 @@ def main() -> int:
                                    "layout_build_s", "same_as_built")}
 
     kernels = [
-        entry("dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)", _SOURCE,
-              f"{_PALLAS}:254", counts["dia_spmv_padded"], stats["dia_spmv_padded"],
-              also_replaces=f"{_PALLAS}:281"),
+        # K2/K3: ms from a CUDA graph of 20 calls (wrapper_ms through the
+        # wrapper), bound_ms k2_bytes, at poisson_2d(1414) f32; every phase-A
+        # system and dtype in cases, with the kernel and tile the rule of
+        # ops/dia_spmv.py staged_plan took (variant)
+        entry("dia_staged_kernel / dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)",
+              _SOURCE, f"{_PALLAS}:254", counts["dia_spmv_padded"], stats["dia_spmv_padded"],
+              also_replaces=f"{_PALLAS}:281", wrapper_ms=stats["dia_spmv_padded"]["wrapper_ms"],
+              variant=stats["dia_spmv_padded"]["variant"],
+              cases=stats["dia_spmv_padded"]["cases"]),
         # K2/K3's bf16-diagonal call shape (the mixed solve's inner product):
         # ms from a CUDA graph of 20 calls beside f32 K2's (f32_ms), bound_ms
-        # (ndiags * 2 + 8) * n_total bytes, at poisson_2d(1414); every system
-        # in cases; launches are phase H's two measured mixed_cg solves
-        entry("dia_padded_kernel<__nv_bfloat16, float> (dia_spmv_padded on bf16 diagonals)",
+        # k2_bytes, at poisson_2d(1414); every system in cases; launches are
+        # phase H's two measured mixed_cg solves
+        entry("dia_staged_kernel<__nv_bfloat16, float> (dia_spmv_padded on bf16 diagonals)",
               _SOURCE, f"{_PALLAS}:254", hstats["launches"], hstats,
               also_replaces=f"{_PALLAS}:281", entry=f"{_PALLAS}:356",
+              variant=hstats["variant"],
               library_of="torch.sparse_csr_tensor(f32) @ x, the nearest call: no PyTorch "
                          "call multiplies bf16-stored values by an f32 vector",
               f32_ms=hstats["f32_ms"], wrapper_ms=hstats["wrapper_ms"],

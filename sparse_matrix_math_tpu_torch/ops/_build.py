@@ -35,13 +35,17 @@ _COMPILE_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_PADDED = [_P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _P, _LL, _LL, _P]
 _APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _LL, _P]
 _SIGNATURES = {
-    # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, stream
-    "smm_dia_spmv_padded_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
-    "smm_dia_spmv_padded_f64": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
-    "smm_dia_spmv_padded_bf16_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
-    "smm_dia_spmv_padded_f16_f32": [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P],
+    # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, tile, segs,
+    # stage_bytes, grid, stream
+    "smm_dia_spmv_padded_f32": _PADDED,
+    "smm_dia_spmv_padded_f64": _PADDED,
+    "smm_dia_spmv_padded_bf16_f32": _PADDED,
+    "smm_dia_spmv_padded_f16_f32": _PADDED,
+    # kind, tile, smem, out: blocks per SM
+    "smm_dia_staged_blocks_per_sm": [_I, _I, _LL, _P],
     # diags, x, y, offsets, ndiags, n_rows, n_cols, stream
     "smm_dia_spmv_f32": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     "smm_dia_spmv_f64": [_P, _P, _P, _P, _I, _LL, _LL, _P],

@@ -141,6 +141,105 @@ def test_narrow_diagonal_wrapper_raises_on_cuda(cuda_device):
     assert K.launches == before
 
 
+# The staged padded kernel (csrc/dia_spmv.cu dia_staged_kernel): systems of
+# several tiles, none a multiple of a tile, the first and last tiles
+# straddling the guard blocks; 5, 7, 27 and 5 diagonals.
+STAGED_CASES = [("poisson_2d", (60,)), ("poisson_3d", (14,)), ("poisson_3d_27pt", (13,)),
+                ("convection_diffusion_2d", (50,))]
+# diagonals' and x's dtypes
+STAGED_DTYPES = {"f32": (torch.float32, torch.float32), "f64": (torch.float64, torch.float64),
+                 "bf16": (torch.bfloat16, torch.float32), "f16": (torch.float16, torch.float32)}
+_COUNTER = {torch.bfloat16: "dia_spmv_padded_bf16", torch.float16: "dia_spmv_padded_f16"}
+
+
+def _layout(name, args, diag_dtype, x_dtype, device, seed=9):
+    """A padded layout with diagonals rounded from values with full mantissas,
+    and an x in its layout."""
+    a = _dia(name, args, x_dtype, device)
+    rng = np.random.default_rng(seed)
+    scale = torch.as_tensor(1.0 + 0.3 * rng.standard_normal(a.diags.shape), device=device)
+    p = K.pad_dia(smm.DIAMatrix(diags=(a.diags * scale.to(x_dtype)).to(diag_dtype),
+                                offsets=a.offsets, shape=a.shape, nnz=a.nnz))
+    xp = p.to_padded(torch.as_tensor(rng.standard_normal(a.shape[1]), device=device)
+                     .to(x_dtype))
+    return p, xp
+
+
+@pytest.mark.parametrize("dt", list(STAGED_DTYPES))
+@pytest.mark.parametrize("name,args", STAGED_CASES, ids=[f"{n}{a}" for n, a in STAGED_CASES])
+def test_staged_kernel_matches_plain(cuda_device, name, args, dt):
+    """Every tile that fits: bit for bit the plain version, guard rows
+    exactly 0, one launch counted under the dtype's key."""
+    diag_dtype, x_dtype = STAGED_DTYPES[dt]
+    p, xp = _layout(name, args, diag_dtype, x_dtype, cuda_device)
+    want = K.dia_spmv_padded_plain(p.diags_p, p.offsets, p.lead, p.shape[0], xp)
+    key = _COUNTER.get(diag_dtype, "dia_spmv_padded")
+    ran = 0
+    for tile in K.STAGED_TILES:
+        plan = K.StagedPlan(tile, K.x_clusters(p.offsets, tile, xp.element_size()))
+        if plan.smem_bytes(len(p.offsets), p.diags_p.element_size(),
+                           xp.element_size()) > K._SMEM_BYTES:
+            continue
+        before = K.launches[key]
+        y = K.launch_padded(p, xp, plan)
+        torch.cuda.synchronize()
+        assert bits_equal(y, want), plan
+        assert torch.all(y[:p.lead] == 0) and torch.all(y[p.lead + p.shape[0]:] == 0)
+        assert K.launches[key] == before + 1
+        ran += 1
+    # float64 at 27 diagonals: two stages of either tile outgrow 227 KB
+    assert ran >= 1 or (dt == "f64" and len(p.offsets) == 27)
+
+
+def test_staged_rule_on_the_card(cuda_device):
+    """The wrapper takes the staged kernel where the rule picks it, and the
+    row kernel where ``xp`` does not start on 16 bytes; both bit for bit."""
+    p, xp = _layout("poisson_3d", (100,), torch.float32, torch.float32, cuda_device)
+    assert K.variant(p, cuda_device).startswith("staged")
+    want = K.dia_spmv_padded_plain(p.diags_p, p.offsets, p.lead, p.shape[0], xp)
+    assert bits_equal(K.dia_spmv_padded(p, xp), want)
+    shifted = torch.zeros(p.n_total + 1, dtype=xp.dtype, device=cuda_device)[1:]
+    shifted.copy_(xp)
+    assert bits_equal(K.dia_spmv_padded(p, shifted), want)
+
+
+def test_rule_keeps_the_row_kernel(cuda_device):
+    """Shapes the rule sends to the row kernel: a small layout, and 64
+    scattered diagonals whose segments outgrow the shared memory."""
+    p, xp = _layout("poisson_2d", (37,), torch.float32, torch.float32, cuda_device)
+    assert K.variant(p, cuda_device) == "rows"
+    assert bits_equal(K.dia_spmv_padded(p, xp),
+                      K.dia_spmv_padded_plain(p.diags_p, p.offsets, p.lead, p.shape[0], xp))
+    n, offsets = 80_000, tuple(range(-32_000, 32_000, 1_000))
+    rng = np.random.default_rng(4)
+    a = smm.DIAMatrix(diags=torch.as_tensor(rng.standard_normal((64, n)), device=cuda_device)
+                      .float(), offsets=offsets, shape=(n, n), nnz=0)
+    p = K.pad_dia(a)
+    xp = p.to_padded(torch.as_tensor(rng.standard_normal(n), device=cuda_device).float())
+    assert K.variant(p, cuda_device) == "rows"
+    assert bits_equal(K.dia_spmv_padded(p, xp),
+                      K.dia_spmv_padded_plain(p.diags_p, offsets, p.lead, n, xp))
+
+
+def test_staged_entry_refuses_bad_plans(cuda_device):
+    """A segment that misses a read, a tile the kernel is not built for,
+    shared memory over 227 KB, or a stage too small for the plan: CUDA
+    error, nothing counted."""
+    p, xp = _layout("poisson_3d_27pt", (13,), torch.float32, torch.float32, cuda_device)
+    good = K.StagedPlan(512, K.x_clusters(p.offsets, 512, 4))
+    (lo, length, first), rest = good.clusters[0], good.clusters[1:]
+    before = dict(K.launches)
+    for plan in (K.StagedPlan(512, ((lo, length - 2, first),) + rest),
+                 K.StagedPlan(256, K.x_clusters(p.offsets, 256, 4)),
+                 K.StagedPlan(1024, K.x_clusters(p.offsets, 1024, 4))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K.launch_padded(p, xp, plan)
+    tile, segs, stage, grid = K._launch_args(p, good, xp.device.index)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K._launch(p, xp, p._k2, (tile, segs, stage - 128, grid))
+    assert K.launches == before
+
+
 def test_mixed_cg_matches_cpu(cuda_device):
     """mixed_cg on the card (K2 f32 for the true residuals, the bf16
     instantiation in the inner solve) against the same solve on the CPU

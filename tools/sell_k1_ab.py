@@ -47,6 +47,7 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
+from ab_build import build  # noqa: E402
 from chip_smoke import median_ms  # noqa: E402
 
 _SRC = os.path.join(_ROOT, "sparse_matrix_math_tpu_torch", "csrc", "sell_spmv.cu")
@@ -61,35 +62,6 @@ def one_column(name: str):
     if m is None or (m.group(2) not in (None, "1")):
         return None
     return "float32" if m.group(1) == "f" else "float64"
-
-
-def build(sources: dict) -> dict:
-    """A shared library per source, built side by side; ptxas's registers
-    and spill stores of each one-column kernel."""
-    from sparse_matrix_math_tpu_torch.ops import _build
-
-    os.makedirs(_OUT, exist_ok=True)
-    procs = {}
-    for key, src in sources.items():
-        lib = os.path.join(_OUT, f"libsell_{key}.so")
-        cmd = [_build._nvcc(), *_build._COMPILE_FLAGS, "-shared", "-Xptxas", "-v", "-o", lib, src]
-        procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for key, (lib, proc) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{text}")
-        ptxas = {}
-        for chunk in text.split("Compiling entry function '")[1:]:
-            dtype = one_column(chunk.split("'", 1)[0])
-            regs = re.search(r"Used (\d+) registers", chunk)
-            spill = re.search(r"(\d+) bytes spill stores", chunk)
-            if dtype is not None and regs:
-                ptxas[dtype] = {"registers": int(regs.group(1)),
-                                "spill_store_bytes": int(spill.group(1)) if spill else None}
-        out[key] = {"lib": lib, "ptxas": ptxas}
-    return out
 
 
 def sass(lib: str) -> dict:
@@ -163,7 +135,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    built = build({"other": other, "this": _SRC})
+    built = build({"other": other, "this": _SRC}, _OUT, "libsell")
+    for b in built.values():  # the one-column kernels, by dtype
+        b["ptxas"] = {one_column(name): {k: info[k] for k in ("registers", "spill_store_bytes")}
+                      for name, info in b["ptxas"].items() if one_column(name)}
     result = {"card": smi, "other": other, "ptxas": {k: v["ptxas"] for k, v in built.items()},
               "sass": {}, "times": {}}
     code = {k: sass(v["lib"]) for k, v in built.items()}

@@ -47,13 +47,13 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
+import ab_build  # noqa: E402
 from chip_smoke import median_ms, sell_bytes  # noqa: E402
 
 _SRC = os.path.join(_ROOT, "sparse_matrix_math_tpu_torch", "csrc", "sell_spmv.cu")
@@ -133,27 +133,20 @@ def probe_source(src: str) -> str:
 def build(sources: dict) -> tuple:
     """One shared library per patched source, built side by side; ptxas's
     registers and spills for each."""
-    from sparse_matrix_math_tpu_torch.ops import _build
-
     os.makedirs(_OUT, exist_ok=True)
-    procs = {}
+    paths = {}
     for key, text in sources.items():
-        src, lib = os.path.join(_OUT, f"sell_{key}.cu"), os.path.join(_OUT, f"libsell_{key}.so")
-        with open(src, "w") as f:
+        paths[key] = os.path.join(_OUT, f"sell_{key}.cu")
+        with open(paths[key], "w") as f:
             f.write(text)
-        cmd = [_build._nvcc(), *_build._COMPILE_FLAGS, "-shared", "-Xptxas", "-v", "-o", lib, src]
-        procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
     libs, ptxas = {}, {}
     P, LL = ctypes.c_void_p, ctypes.c_longlong
-    for key, (lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-        ptxas[key] = {"registers": [int(r) for r in re.findall(r"Used (\d+) registers", out)],
-                      "spill_store_bytes": [int(s) for s in
-                                            re.findall(r"(\d+) bytes spill stores", out)]}
-        dll = ctypes.CDLL(lib)
+    for key, b in ab_build.build(paths, _OUT, "libsell").items():
+        reports = list(b["ptxas"].values())
+        ptxas[key] = {"registers": [r["registers"] for r in reports],
+                      "spill_store_bytes": [r["spill_store_bytes"] for r in reports
+                                            if r["spill_store_bytes"] is not None]}
+        dll = ctypes.CDLL(b["lib"])
         for name in ("smm_sell_spmm_f32", "smm_sell_spmm_f64"):
             fn = getattr(dll, name)
             fn.argtypes = [P, P, P, P, P, P, ctypes.c_int, LL, ctypes.c_int, P]

@@ -46,7 +46,6 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +54,7 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
+from ab_build import build  # noqa: E402
 from chip_smoke import (apply_bytes, bound_ms, graph_ms, median_ms,  # noqa: E402
                         traffic_bytes)
 
@@ -65,38 +65,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # r, invd(_l), diag | invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1,
 # out, sweeps, n_total, lead, n_rows, [tile,] stream
 _ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL]
-
-
-def build(sources: dict) -> dict:
-    """A shared library per source, built side by side; ptxas's registers,
-    shared memory and spill stores of each kernel."""
-    from sparse_matrix_math_tpu_torch.ops import _build
-
-    os.makedirs(_OUT, exist_ok=True)
-    procs = {}
-    for key, src in sources.items():
-        lib = os.path.join(_OUT, f"libtrisweep_{key}.so")
-        cmd = [_build._nvcc(), *_build._COMPILE_FLAGS, "-shared", "-Xptxas", "-v", "-o", lib,
-               src]
-        procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for key, (lib, proc) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{text}")
-        ptxas = {}
-        for chunk in text.split("Compiling entry function '")[1:]:
-            name = chunk.split("'", 1)[0]
-            regs = re.search(r"Used (\d+) registers", chunk)
-            smem = re.search(r"(\d+) bytes smem", chunk)
-            spill = re.search(r"(\d+) bytes spill stores", chunk)
-            if regs:
-                ptxas[name] = {"registers": int(regs.group(1)),
-                               "static_smem_bytes": int(smem.group(1)) if smem else 0,
-                               "spill_store_bytes": int(spill.group(1)) if spill else None}
-        out[key] = {"lib": lib, "ptxas": ptxas}
-    return out
 
 
 def entry(dll, sgs: bool, dtype_name: str, with_tile: bool):
@@ -159,7 +127,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    built = build({"parent": parent, "this": _SRC})
+    built = build({"parent": parent, "this": _SRC}, _OUT, "libtrisweep")
     for key, b in built.items():
         for name, info in b["ptxas"].items():
             print(f"ptxas {key} {name}: {info}")
