@@ -220,11 +220,14 @@ def phase_a(smm, K, torch, dev):
                 stats[bucket]["err"] = max(stats[bucket]["err"], abs_err)
                 plain_ms = median_ms(plain)
                 if kname == "dia_spmv":
-                    ms = median_ms(kern)
+                    # K1 from a CUDA graph, the wrapper beside it
+                    ms, wrapper_ms = graph_ms(torch, kern), median_ms(kern)
                     nbytes = (len(a.offsets) + 2) * n_rows * a.diags.element_size()
-                    extra = {}
-                    print(f"  {kname} {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
-                          f"GB/s), plain {plain_ms:.4f} ms")
+                    extra = {"wrapper_ms": wrapper_ms}
+                    print(f"  {kname} {name}: graph {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+                          f"{100 * bound_ms(nbytes) / ms:.0f}% of the {bound_ms(nbytes):.4f} ms "
+                          f"bound), through the wrapper {wrapper_ms:.4f} ms, plain "
+                          f"{plain_ms:.4f} ms")
                 else:
                     # K2/K3 from a CUDA graph, the wrapper beside it; the
                     # kernel and tile the rule of ops/dia_spmv.py staged_plan took
@@ -1693,9 +1696,20 @@ def phase_r(smm, loop, torch, dev, dia_solves):
     return stats, counts
 
 
-def profiled_us(torch, solve):
-    """Device kernel time (us) and kernel launches of one solve under
-    torch.profiler."""
+def timed_solve(torch, solve):
+    """``solve()`` timed by the host clock between two syncs: (result, s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve()
+    float(res.residual_norm2 if hasattr(res, "residual_norm2") else res.residual_norm)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def device_breakdown(torch, solve, groups):
+    """Device µs of one run of ``solve`` under torch.profiler, summed by the
+    first group (name, substrings) whose substring a kernel's name holds,
+    the rest under "other"; and the kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1703,9 +1717,15 @@ def profiled_us(torch, solve):
         res = solve()
         float(res.residual_norm)
         torch.cuda.synchronize()
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation]
-    return sum(ev.self_device_time_total for ev in events), sum(ev.count for ev in events)
+    out = {name: 0.0 for name, _ in groups}
+    out["other"], launches = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        key = next((name for name, subs in groups if any(s in ev.key for s in subs)), "other")
+        out[key] += ev.self_device_time_total
+        launches += ev.count
+    return res, out, launches
 
 
 def phase_h(smm, K, loop, torch, dev):
@@ -1782,32 +1802,26 @@ def phase_h(smm, K, loop, torch, dev):
         b = dia @ torch.ones(n, dtype=torch.float32, device=dev)
         eps_cg = 1e-4 if rel_eps is None else rel_eps * float(torch.linalg.norm(b))
 
-        def timed(solve):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = solve()
-            float(res.residual_norm)
-            torch.cuda.synchronize()
-            return res, time.perf_counter() - t0
-
         cg_kw = dict(epsilon=eps_cg, max_iterations=6000)
-        timed(lambda: smm.cg(dia, b, **cg_kw))  # warm
-        cg_res, cg_wall = timed(lambda: smm.cg(dia, b, **cg_kw))
+        timed_solve(torch, lambda: smm.cg(dia, b, **cg_kw))  # warm
+        cg_res, cg_wall = timed_solve(torch, lambda: smm.cg(dia, b, **cg_kw))
         cg_true, _ = host_residuals(csr, b, cg_res.x)
         eps = 1.05 * cg_true if rel_eps is None else eps_cg
         mx_kw = dict(epsilon=eps, max_iterations=6000)
-        timed(lambda: smm.mixed_cg(dia, b, **mx_kw))  # warm
+        timed_solve(torch, lambda: smm.mixed_cg(dia, b, **mx_kw))  # warm
         # the counters at 0 just before the measured solve, read just after
         K.reset_launch_counts()
         MX.reset_loop_counts()
         syncs0 = loop.host_syncs["count"]
-        mx_res, mx_wall = timed(lambda: smm.mixed_cg(dia, b, **mx_kw))
+        mx_res, mx_wall = timed_solve(torch, lambda: smm.mixed_cg(dia, b, **mx_kw))
         counts, rounds = dict(K.launches), MX.loop_counts["rounds"]
         syncs = loop.host_syncs["count"] - syncs0
         mx_true, mx_same = host_residuals(csr, b, mx_res.x)
         its = mx_res.iterations
-        cg_dev, cg_kernels = profiled_us(torch, lambda: smm.cg(dia, b, **cg_kw))
-        mx_dev, mx_kernels = profiled_us(torch, lambda: smm.mixed_cg(dia, b, **mx_kw))
+        _, cg_split, cg_kernels = device_breakdown(torch, lambda: smm.cg(dia, b, **cg_kw), ())
+        _, mx_split, mx_kernels = device_breakdown(torch, lambda: smm.mixed_cg(dia, b, **mx_kw),
+                                                   ())
+        cg_dev, mx_dev = sum(cg_split.values()), sum(mx_split.values())
         print(f"{label} b=A@ones eps {eps:.6e}: mixed_cg {mx_res.status_enum().name} "
               f"inner iterations {its}, rounds {rounds}, residual_norm "
               f"{float(mx_res.residual_norm):.6e}, host f64 {mx_true:.6e} (f32 {mx_same:.6e}); "
@@ -1866,6 +1880,330 @@ def phase_h(smm, K, loop, torch, dev):
     stats.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                          "f32_ms", "wrapper_ms", "variant")})
     print(f"phase H took {time.perf_counter() - t_start:.1f} s")
+    return stats
+
+
+def held(smm, label, res, true64, same, eps, required):
+    """The result contract of one phase-G run: SUCCESS only where the host's
+    float64 true residual is at most ``eps`` (1% slack), any other status
+    with a reported residual the host confirms within 1% (``same``: the
+    host's residual in the solve's precision).  A ``required`` run must
+    reach SUCCESS.  Returns whether the run is a confirmed SUCCESS."""
+    status = res.status_enum()
+    reported = float(res.residual_norm)
+    if status == smm.SolverStatus.SUCCESS:
+        ok = true64 <= 1.01 * eps
+        if required:
+            require(ok, f"{label}: SUCCESS with the host float64 residual {true64:.6e} <= "
+                        f"{eps:.6e}")
+        else:
+            print(f"  {label}: SUCCESS {'confirmed' if ok else 'NOT confirmed'} by the host "
+                  f"(float64 {true64:.6e}, epsilon {eps:.6e})")
+        return ok
+    require(not required, f"{label}: status {status.name} (required: SUCCESS)")
+    require(abs(reported - same) <= 0.01 * same,
+            f"{label}: {status.name}, residual_norm {reported:.6e} within 1% of the host's "
+            f"{same:.6e}")
+    return False
+
+
+def lowest_modes(torch, nx: int, k: int, dev):
+    """The ``k`` lowest eigenvectors of the 5-point Dirichlet Laplacian on an
+    nx x nx grid, sin(p pi i / (nx + 1)) sin(q pi j / (nx + 1)), normalised,
+    as an (n, k) float32 panel (the modes of ``poisson_2d``'s row order)."""
+    import math
+
+    pairs = sorted(((p, q) for p in range(1, 5) for q in range(1, 5)),
+                   key=lambda pq: (pq[0] ** 2 + pq[1] ** 2, pq))[:k]
+    t = torch.arange(1, nx + 1, dtype=torch.float64, device=dev) * (math.pi / (nx + 1))
+    cols = []
+    for p, q in pairs:
+        v = torch.outer(torch.sin(q * t), torch.sin(p * t)).reshape(-1)  # row j, column i
+        cols.append(v / torch.linalg.norm(v))
+    return torch.stack(cols, dim=1).to(torch.float32), pairs
+
+
+def phase_g(smm, K, loop, torch, dev, dia_solves, nx: int = 1414, m3: int = 243):
+    """The solver tail at the JAX bench's sizes: GMRES(32) and its s-step form
+    on ``convection_diffusion_2d(1414)`` as DIA (every matvec one K1 launch;
+    bench.py:885-947), GMRES + ILU0(4) through ``solve(auto_format=True)``
+    (DIA, K1, and the factors' W-SELL strict products, K7), PCG with the
+    multigrid V-cycle on ``poisson_2d(1414)`` (bench.py:467-490), the 1e-8
+    contract through ``solve(preconditioner="multigrid")`` on
+    ``poisson_3d(243)`` (bench.py:1025-1070), Chebyshev, pipelined and
+    deflated CG beside plain CG, ``lanczos_deflation_basis``, and
+    ``cg_solve``'s forward and backward.  ``nx`` and ``m3`` are the 2-D and
+    3-D sides (smaller ones rehearse the phase).  Returns the phase's
+    readings, with ``launches``: every kernel's launches summed over the
+    measured runs (warm-up runs, the profiled run and the f32 floor's
+    calibration run are not counted)."""
+    import importlib
+    import math
+
+    import numpy as np
+
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
+    from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+
+    G = importlib.import_module("sparse_matrix_math_tpu_torch.solvers.gmres")
+    print("== phase G: the solver tail (GMRES, multigrid, Chebyshev, pipelined, deflated, "
+          "cg_solve) at full width")
+    t_start = time.perf_counter()
+    stats = {"runs": {}}
+    for mod in (K, T, W, E, D):
+        mod.reset_launch_counts()
+
+    def live():
+        return {k: v for mod in (K, T, W, E, D) for k, v in mod.launches.items()}
+
+    measured = dict.fromkeys(live(), 0)
+
+    def counted(run):
+        """``run()`` as a measured run: (its result, its launches), which add
+        to the phase's."""
+        before = live()
+        out = run()
+        added = {k: v - before[k] for k, v in live().items()}
+        for k, v in added.items():
+            measured[k] += v
+        return out, added
+
+    # -- 1. GMRES(32) on convection_diffusion_2d(1414), f32 DIA ---------------
+    cd64 = smm.convection_diffusion_2d(nx, dtype=torch.float64, device=dev)
+    b = torch.zeros(cd64.shape[0], dtype=torch.float64, device=dev).index_add_(
+        0, cd64.row_ids, cd64.data).to(torch.float32)  # row sums: x = ones
+    cd32 = cd64.astype(torch.float32)
+    del cd64
+    dia = smm.dia_from_csr(cd32)
+    geps = 6e-4
+    for label, extra in (("gmres(32)", {}), ("gmres(32) s_step=8", {"s_step": 8})):
+        kw = dict(epsilon=geps, max_iterations=6000, restart=32, **extra)
+        timed_solve(torch, lambda: smm.gmres(dia, b, **kw))  # warm
+        syncs0 = loop.host_syncs["count"]
+        G.loop_counts.update(cycles=0, matvecs=0)
+        (res, wall), added = counted(lambda: timed_solve(torch, lambda: smm.gmres(dia, b, **kw)))
+        k1 = added["dia_spmv"]
+        syncs = loop.host_syncs["count"] - syncs0
+        cycles, matvecs = G.loop_counts["cycles"], G.loop_counts["matvecs"]
+        true64, same = host_residuals(cd32, b, res.x)
+        its = res.iterations
+        print(f"{label} convection_diffusion_2d({nx}) f32 eps {geps}: "
+              f"{res.status_enum().name} iterations={its} restarts={cycles} residual_norm="
+              f"{float(res.residual_norm):.6e} host f64 {true64:.6e} f32 {same:.6e}; wall "
+              f"{wall:.3f} s, {1e6 * wall / max(its, 1):.1f} us per Arnoldi step, {syncs} host "
+              f"syncs; K1 launches {k1} = 1 + 2 x {cycles} cycles + {matvecs} matvecs")
+        held(smm, label, res, true64, same, geps, required=True)
+        require(k1 == 1 + 2 * cycles + matvecs and matvecs >= its,
+                f"{label}: every matvec one K1 launch ({k1})")
+        stats["runs"][label] = {"status": res.status_enum().name, "iterations": its,
+                                "restarts": cycles, "host_f64_residual": true64,
+                                "wall_s": wall, "us_per_step": 1e6 * wall / max(its, 1),
+                                "host_syncs": syncs, "k1_launches": k1}
+    # where a step's device time goes: a capped run (8 cycles), timed, then
+    # under the profiler (neither counted)
+    groups = (("K1 dia_kernel", ("dia_kernel",)), ("panel products (cuBLAS)", ("gemv", "gemm")))
+    capped = dict(epsilon=geps, max_iterations=256, restart=32)
+    _, wall = timed_solve(torch, lambda: smm.gmres(dia, b, **capped))
+    _, split, launches = device_breakdown(torch, lambda: smm.gmres(dia, b, **capped), groups)
+    total = sum(split.values())
+    print(f"  gmres(32), 256 steps under torch.profiler: wall {1e6 * wall / 256:.1f} us per "
+          f"step, device {total / 256:.1f} us per step in {launches / 256:.1f} kernels: "
+          + ", ".join(f"{k} {v / 256:.1f}" for k, v in split.items()))
+    stats["runs"]["gmres(32) 256-step profile"] = {
+        "wall_us_per_step": 1e6 * wall / 256, "device_us_per_step": total / 256,
+        "kernels_per_step": launches / 256,
+        **{f"{k} us_per_step": v / 256 for k, v in split.items()}}
+
+    # GMRES + ILU0(4) through the front door: DIA operator, W-SELL strict factors
+    (fd, wall), added = counted(lambda: timed_solve(torch, lambda: smm.solve(
+        cd32, b, method="gmres", epsilon=geps, max_iterations=6000, preconditioner="ilu0",
+        preconditioner_options={"method": "jacobi", "sweeps": 4}, auto_format=True)))
+    k1, k7 = added["dia_spmv"], added["wsell_spmv"]
+    true64, same = host_residuals(cd32, b, fd.x)
+    label = "solve(csr, method='gmres', preconditioner='ilu0' jacobi 4, auto_format=True)"
+    print(f"{label}: {fd.status_enum().name} iterations={fd.iterations} residual_norm "
+          f"{float(fd.residual_norm):.6e} host f64 {true64:.6e}; wall {wall:.3f} s; K1 "
+          f"launches {k1}, K7 launches {k7}")
+    held(smm, label, fd, true64, same, geps, required=False)
+    require(k1 >= fd.iterations and k7 >= fd.iterations,
+            f"{label}: the DIA operator on K1 ({k1}) and the strict factors on K7 ({k7})")
+    stats["runs"]["gmres + ilu0 front door"] = {
+        "status": fd.status_enum().name, "iterations": fd.iterations,
+        "host_f64_residual": true64, "wall_s": wall, "k1_launches": k1, "k7_launches": k7}
+    del dia, cd32, b, fd
+    torch.cuda.empty_cache()
+
+    # -- 2. PCG with the V-cycle on poisson_2d(1414), f32 ----------------------
+    p32 = smm.poisson_2d(nx, dtype=torch.float32, device=dev)
+    pdia = smm.dia_from_csr(p32)
+    ones = torch.ones(p32.shape[0], dtype=torch.float32, device=dev)
+    b = pdia @ ones
+    mg = smm.PoissonMultigrid.for_grid(nx, device=dev)
+    r = torch.rand(p32.shape[0], dtype=torch.float32, device=dev)
+    vcycle_ms, vcycle_graph_ms = median_ms(lambda: mg.apply(r), samples=5, calls=5), \
+        graph_ms(torch, lambda: mg.apply(r), calls=5)
+    kw = dict(epsilon=1e-4, max_iterations=6000, preconditioner=mg)
+    timed_solve(torch, lambda: smm.cg(pdia, b, **kw))  # warm
+    (res, wall), _ = counted(lambda: timed_solve(torch, lambda: smm.cg(pdia, b, **kw)))
+    true64, same = host_residuals(p32, b, res.x)
+    cg_its, cg_wall = dia_solves["cg poisson_2d(1414) f32"]
+    label = f"pcg + multigrid poisson_2d({nx}) f32 eps 1e-4"
+    print(f"{label}: {res.status_enum().name} iterations={res.iterations} floor_hit="
+          f"{res.floor_hit} residual_norm {float(res.residual_norm):.6e} host f64 {true64:.6e} "
+          f"f32 {same:.6e}; wall {wall:.3f} s; V-cycle apply {vcycle_ms:.3f} ms (events, "
+          f"{len(mg.dims)} levels), {vcycle_graph_ms:.3f} ms from a CUDA graph; phase B's "
+          f"plain CG {cg_its} iterations in {cg_wall:.3f} s")
+    held(smm, label, res, true64, same, 1e-4, required=False)
+    stats["runs"]["pcg multigrid"] = {
+        "status": res.status_enum().name, "iterations": res.iterations,
+        "floor_hit": res.floor_hit, "host_f64_residual": true64, "host_f32_residual": same,
+        "wall_s": wall, "vcycle_ms": vcycle_ms, "vcycle_graph_ms": vcycle_graph_ms,
+        "plain_cg_iterations": cg_its, "plain_cg_wall_s": cg_wall}
+    del mg, r
+
+    # -- 4. Chebyshev, pipelined and deflated CG beside plain CG ---------------
+    eps = 1e-4 * float(torch.linalg.norm(b))
+    s2 = math.sin(math.pi / (2 * (nx + 1))) ** 2
+    bounds = (8.0 * s2, 8.0 * (1.0 - s2))  # the 5-point Laplacian's extreme eigenvalues
+    basis, pairs = lowest_modes(torch, nx, 8, dev)
+    tail = (("cg", lambda: smm.cg(pdia, b, epsilon=eps, max_iterations=20000)),
+            ("chebyshev", lambda: smm.chebyshev(pdia, b, epsilon=eps, max_iterations=20000,
+                                                eig_bounds=bounds)),
+            ("cg_pipelined", lambda: smm.cg_pipelined(pdia, b, epsilon=eps,
+                                                      max_iterations=20000)),
+            ("deflated_cg", lambda: smm.deflated_cg(pdia, b, epsilon=eps, max_iterations=20000,
+                                                    deflation_basis=basis)))
+    for name, solve in tail:
+        (res, wall), added = counted(lambda: timed_solve(torch, solve))
+        k1 = added["dia_spmv"]
+        true64, same = host_residuals(p32, b, res.x)
+        label = f"{name} poisson_2d({nx}) f32 eps 1e-4*||b|| = {eps:.4e}"
+        print(f"{label}: {res.status_enum().name} iterations={res.iterations} residual_norm "
+              f"{float(res.residual_norm):.6e} host f64 {true64:.6e} f32 {same:.6e}; wall "
+              f"{wall:.3f} s, {1e6 * wall / max(res.iterations, 1):.1f} us/iteration; K1 "
+              f"launches {k1}")
+        # pipelined CG reports its recurrence's residual, as in the JAX package
+        if name == "cg_pipelined" and res.status_enum() != smm.SolverStatus.SUCCESS:
+            print(f"  {label}: residual_norm is the recurrence's (host {same:.6e})")
+            confirmed = False
+        else:
+            confirmed = held(smm, label, res, true64, same, eps, required=False)
+        if name != "cg":
+            require(k1 >= res.iterations, f"{name}: its matvecs on K1 ({k1} launches)",
+                    quiet=True)
+        stats["runs"][name] = {"status": res.status_enum().name, "confirmed": confirmed,
+                               "iterations": res.iterations, "host_f64_residual": true64,
+                               "wall_s": wall, "k1_launches": k1}
+    print(f"  deflation basis: the modes (p, q) = {pairs}")
+
+    # lanczos_deflation_basis at tests/test_deflated.py's size: the f32 ring
+    n = 128
+    i = np.arange(n)
+    d = np.zeros((n, n), np.float32)
+    d[i, i] = 2.0 + 1e-5
+    d[i, (i + 1) % n] = -1.0
+    d[i, (i - 1) % n] = -1.0
+    ring = smm.csr_from_dense(d, device=dev)
+    rb = torch.as_tensor(np.random.default_rng(2).standard_normal(n).astype(np.float32),
+                         device=dev)
+
+    def ring_runs():
+        w = smm.lanczos_deflation_basis(ring, n_vectors=1, steps=96)
+        return (w, smm.deflated_cg(ring, rb, epsilon=1e-5, max_iterations=5000,
+                                   deflation_basis=w),
+                smm.cg(ring, rb, epsilon=1e-5, max_iterations=5000))
+
+    (w, defl, plain), _ = counted(ring_runs)
+    overlap = abs(float(w[:, 0].sum())) / math.sqrt(n)
+    require(tuple(w.shape) == (n, 1) and overlap > 1 - 1e-3 and defl.success
+            and defl.iterations < plain.iterations,
+            f"lanczos_deflation_basis on the f32 ring (n=128, 96 steps): the constant mode "
+            f"(overlap {overlap:.6f}); deflated_cg {defl.iterations} iterations against plain "
+            f"cg's {plain.iterations}")
+    del basis, w, ring
+
+    # -- 5. cg_solve forward and backward, poisson_2d(1414) f32 DIA -------------
+    # eps: twice the true residual at which f32 CG with b = ones stalls on
+    # this system (its floor, measured here by a run that floor_hit stops)
+    floor_run = smm.cg(pdia, ones, epsilon=1.0, max_iterations=20000)
+    floor64, _ = host_residuals(p32, ones, floor_run.x)
+    ceps = 2.0 * floor64
+    print(f"  f32 cg poisson_2d({nx}) b = ones, eps 1.0: {floor_run.status_enum().name} "
+          f"floor_hit={floor_run.floor_hit} after {floor_run.iterations} iterations, residual_norm "
+          f"{float(floor_run.residual_norm):.6e}, host f64 {floor64:.6e}")
+    diags = pdia.diags.clone().requires_grad_(True)
+    a = dataclasses.replace(pdia, diags=diags)
+    bb = ones.clone().requires_grad_(True)
+
+    def forward_backward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = smm.cg_solve(a, bb, ceps, 20000)
+        x.backward(ones)
+        torch.cuda.synchronize()
+        return x.detach(), time.perf_counter() - t0
+
+    (x, wall), added = counted(forward_backward)
+    k2, lam = added["dia_spmv_padded"], bb.grad
+    fwd, _ = host_residuals(p32, ones, x)  # ||b - A x||, float64 on the host
+    adj, _ = host_residuals(p32, ones, lam)  # ||g - A grad_b||
+    # the matrix cotangent, -lam[i] x[i + off] where the column is valid,
+    # worked out in float64 on the host from the same x and lam: one f32
+    # product per entry, so within half an ulp of each
+    lam64, x64 = lam.double().cpu().numpy(), x.double().cpu().numpy()
+    ref = np.zeros(tuple(diags.shape))
+    for row, off in enumerate(pdia.offsets):
+        lo, hi = max(0, -off), min(len(x64), len(x64) - off)
+        ref[row, lo:hi] = -lam64[lo:hi] * x64[lo + off:hi + off]
+    got = diags.grad.double().cpu().numpy()
+    gerr, gtol = float(np.abs(got - ref).max()), 4 * 2.0 ** -23 * float(np.abs(ref).max())
+    require(bool(torch.isfinite(lam).all()) and fwd <= ceps and adj <= ceps,
+            f"cg_solve poisson_2d({nx}) f32 DIA, b = g = ones, eps {ceps:.4e}: "
+            f"||b - A x|| = {fwd:.4e}, ||A grad_b - g|| = {adj:.4e} <= eps in float64; "
+            f"forward + backward {wall:.3f} s, {k2} K2 launches")
+    require(tuple(got.shape) == tuple(diags.shape) and gerr <= gtol,
+            f"cg_solve: diags.grad {tuple(got.shape)} against -lam[i] x[i + off] in float64 on "
+            f"the host: max |err| {gerr:.3e} <= 4 f32 ulps of the largest entry ({gtol:.3e})")
+    stats["runs"]["cg_solve"] = {"epsilon": ceps, "f32_floor": floor64,
+                                 "floor_iterations": floor_run.iterations,
+                                 "forward_residual": fwd, "adjoint_residual": adj,
+                                 "diags_grad_max_err": gerr, "wall_s": wall, "k2_launches": k2}
+    del diags, a, bb, x, lam, ref, got, floor_run, pdia, p32, b
+    torch.cuda.empty_cache()
+
+    # -- 3. the 1e-8 contract: poisson_3d(243) through the front door ----------
+    p3 = smm.poisson_3d(m3, dtype=torch.float64, device=dev)
+    data, indices, indptr = host_csr_arrays(p3)
+    st = smm.try_grid_stencil_from_csr(p3.astype(torch.float32))
+    del p3
+    torch.cuda.empty_cache()
+    b64 = np.add.reduceat(data, indptr[:-1])  # row sums: x = ones
+    b32 = torch.as_tensor(b64.astype(np.float32), device=dev)
+    (res, wall), _ = counted(lambda: timed_solve(torch, lambda: smm.solve(
+        st, b32, method="cg", epsilon=1e-8, preconditioner="multigrid", max_iterations=60000)))
+    x64 = res.x_f64()
+    true64 = float(np.linalg.norm(b64 - np.add.reduceat(data * x64[indices], indptr[:-1])))
+    label = f"solve(poisson_3d({m3}) stencil, f32 b, eps 1e-8, preconditioner='multigrid')"
+    print(f"{label}: {type(res).__name__} {res.status_enum().name} rounds={res.outer_rounds} "
+          f"inner iterations={res.iterations} host f64 {true64:.6e}; wall {wall:.3f} s")
+    require(isinstance(res, smm.DfSolveResult) and res.status == smm.SolverStatus.SUCCESS
+            and true64 <= 1.01e-8,
+            f"{label}: pre-routed to the refinement with the V-cycle inside, SUCCESS with the "
+            f"host float64 residual {true64:.4e} <= 1e-8")
+    stats["runs"][f"contract 1e-8 poisson_3d({m3})"] = {
+        "status": res.status_enum().name, "rounds": res.outer_rounds,
+        "inner_iterations": res.iterations, "host_f64_residual": true64, "wall_s": wall}
+    del st, b32, res, data, indices, indptr
+    torch.cuda.empty_cache()
+
+    stats["launches"] = measured
+    stats["seconds"] = time.perf_counter() - t_start
+    require(measured["dia_spmv"] > 0, f"phase G's measured runs launched K1 "
+                                      f"{measured['dia_spmv']} times")
+    print(f"phase G launches (measured runs): {measured}; phase G took "
+          f"{stats['seconds']:.1f} s")
     return stats
 
 
@@ -1941,6 +2279,7 @@ def main() -> int:
     dstats, dcounts = phase_d(smm, _loop, torch, dev)
     rstats, rcounts = phase_r(smm, _loop, torch, dev, dia_solves)
     hstats = phase_h(smm, K, _loop, torch, dev)
+    glaunch = phase_g(smm, K, _loop, torch, dev, dia_solves)["launches"]
     phase_c(smm, torch, dev)
 
     def entry(name, source, replaces, launches, st, **extra):
@@ -1958,9 +2297,12 @@ def main() -> int:
         # K2/K3: ms from a CUDA graph of 20 calls (wrapper_ms through the
         # wrapper), bound_ms k2_bytes, at poisson_2d(1414) f32; every phase-A
         # system and dtype in cases, with the kernel and tile the rule of
-        # ops/dia_spmv.py staged_plan took (variant)
+        # ops/dia_spmv.py staged_plan took (variant); launches are phase B's
+        # and phase G's measured runs' (cg on DIA, cg_solve)
         entry("dia_staged_kernel / dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)",
-              _SOURCE, f"{_PALLAS}:254", counts["dia_spmv_padded"], stats["dia_spmv_padded"],
+              _SOURCE, f"{_PALLAS}:254", counts["dia_spmv_padded"] + glaunch["dia_spmv_padded"],
+              stats["dia_spmv_padded"], phase_b_launches=counts["dia_spmv_padded"],
+              phase_g_launches=glaunch["dia_spmv_padded"],
               also_replaces=f"{_PALLAS}:281", wrapper_ms=stats["dia_spmv_padded"]["wrapper_ms"],
               variant=stats["dia_spmv_padded"]["variant"],
               cases=stats["dia_spmv_padded"]["cases"]),
@@ -1976,8 +2318,13 @@ def main() -> int:
                          "call multiplies bf16-stored values by an f32 vector",
               f32_ms=hstats["f32_ms"], wrapper_ms=hstats["wrapper_ms"],
               cases=hstats["cases"], solves=hstats["solves"]),
-        entry("dia_kernel (dia_spmv)", _SOURCE, f"{_PALLAS}:91", counts["dia_spmv"],
-              stats["dia_spmv"]),
+        # K1: ms from a CUDA graph of 20 calls (wrapper_ms through the
+        # wrapper) at poisson_2d(1414) f32; launches are phase B's and phase
+        # G's measured runs' (every matvec of the solver tail on DIA)
+        entry("dia_kernel (dia_spmv)", _SOURCE, f"{_PALLAS}:91",
+              counts["dia_spmv"] + glaunch["dia_spmv"], stats["dia_spmv"],
+              wrapper_ms=stats["dia_spmv"]["wrapper_ms"], phase_b_launches=counts["dia_spmv"],
+              phase_g_launches=glaunch["dia_spmv"]),
         # K4/K5: ms from a CUDA graph of 20 applies (wrapper_ms through the
         # wrapper), bound_ms each input read once and z written once,
         # traffic_bound_ms the variant's own traffic; variants: what the rule
@@ -2000,8 +2347,12 @@ def main() -> int:
         entry("sell_kernel for ell_kernel (ell_spmv)", _SELL_SOURCE, f"{_PALLAS}:392",
               wcounts["ell_spmv"], wstats["ell_spmv"], entry=f"{_PALLAS}:405",
               layout=layout(wstats["ell_spmv"])),
+        # K7: launches are phase W's and phase G's measured runs' (the ILU0
+        # factors' strict products under GMRES)
         entry("sell_kernel for wsell_kernel k=1 (wsell_spmv)", _SELL_SOURCE,
-              f"{_WSELL_PALLAS}:89", wcounts["wsell_spmv"], wstats["wsell_spmv"],
+              f"{_WSELL_PALLAS}:89", wcounts["wsell_spmv"] + glaunch["wsell_spmv"],
+              wstats["wsell_spmv"], phase_w_launches=wcounts["wsell_spmv"],
+              phase_g_launches=glaunch["wsell_spmv"],
               also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
               layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],
               routed_final_pass=rstats["final_pass"]),

@@ -5,9 +5,12 @@ and the double-word (f64-grade from float32 pairs) solvers.
 Load or build a CSR matrix on a device, then call :func:`solve` (with
 ``auto_format=True`` :func:`best_format` picks the layout: grid stencil, DIA,
 W-SELL, RCM + W-SELL, the routed R-SELL chain, or the CSR itself), or solve
-with :func:`cg`, :func:`bicgstab`, :func:`bicg_symmetric` or :func:`cgs`,
-optionally preconditioned (Jacobi, SGS, IC0, ILU0, Chebyshev), and get a
-:class:`SolveResult` back; :func:`cg_multi` (or :func:`solve` with a ``b``
+with :func:`cg`, :func:`bicgstab`, :func:`bicg_symmetric`, :func:`cgs`,
+:func:`gmres` (restarted, or s-step), :func:`chebyshev`, :func:`cg_pipelined`
+or :func:`deflated_cg`, optionally preconditioned (Jacobi, SGS, IC0, ILU0,
+Chebyshev, the geometric multigrid V-cycle :class:`PoissonMultigrid`), and get
+a :class:`SolveResult` back (:func:`cg_solve` is a CG solve that autograd
+differentiates); :func:`cg_multi` (or :func:`solve` with a ``b``
 of shape ``(n, m)``) solves m right-hand sides through one loop and returns
 a :class:`MultiSolveResult`.  A large CSR matrix on a CUDA device is
 routed to DIA, else to W-SELL, else (with no preconditioner) through an RCM
@@ -100,6 +103,7 @@ from .solvers import (
     SOLVERS,
     DfSolveResult,
     MultiSolveResult,
+    PoissonMultigrid,
     SolverConfig,
     SolveResult,
     SolverStatus,
@@ -111,10 +115,17 @@ from .solvers import (
     cg_df64,
     cg_ir_df64,
     cg_multi,
+    cg_pipelined,
+    cg_solve,
     cgs,
+    chebyshev,
     conjugate_gradient,
-    mixed_cg,
     conjugate_gradient_squared,
+    deflated_cg,
+    gmres,
+    lanczos_deflation_basis,
+    lanczos_extremal,
+    mixed_cg,
     solve,
 )
 from .utils import (
@@ -145,7 +156,8 @@ __all__ = [
     "get_preconditioner", "ChebyshevPreconditioner",
     "SolveResult", "SolverStatus", "bicgstab", "cg", "conjugate_gradient", "bicg_symmetric",
     "cgs", "conjugate_gradient_squared", "solve", "SolverConfig", "SOLVERS",
-    "cg_multi", "MultiSolveResult", "mixed_cg",
+    "cg_multi", "MultiSolveResult", "mixed_cg", "gmres", "chebyshev", "lanczos_extremal",
+    "cg_pipelined", "deflated_cg", "lanczos_deflation_basis", "cg_solve", "PoissonMultigrid",
     "DfSolveResult", "DfDiaMatrix", "DfEllMatrix", "DfGridStencil", "df_from_host", "df_to_host",
     "df_operator_from_host_csr", "cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64",
     "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",

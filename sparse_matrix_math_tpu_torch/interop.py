@@ -26,11 +26,13 @@ from .precond.preconditioners import (
     SGSPreconditioner,
 )
 from .precond.trisolve import TriangularMatrix
+from .solvers.multigrid import PoissonMultigrid
 
 __all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy", "triangular_from_numpy",
            "sgs_from_numpy", "ic0_from_numpy", "ilu0_from_numpy", "wsell_from_numpy",
            "ell_from_numpy", "hyb_from_numpy", "reordered_from_numpy", "df_dia_from_numpy",
-           "df_ell_from_numpy", "routed_from_numpy", "grid_stencil_from_numpy"]
+           "df_ell_from_numpy", "routed_from_numpy", "grid_stencil_from_numpy",
+           "multigrid_from_numpy"]
 
 
 def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
@@ -196,3 +198,20 @@ def ilu0_from_numpy(lower_fields, upper_fields, shift, device) -> ILU0Preconditi
     return ILU0Preconditioner(lower=triangular_from_numpy(lower_fields, device),
                               upper=triangular_from_numpy(upper_fields, device),
                               shift=float(shift))
+
+
+def multigrid_from_numpy(coarse_inv, factors, winv, dims, nu1, nu2, omega,
+                         device) -> PoissonMultigrid:
+    """A :class:`PoissonMultigrid` from its hierarchy: the coarsest level's
+    dense inverse, the per-level ``(dL, uL, dM, uM)`` factors of every axis,
+    the Jacobi weights ``winv`` and the grid of every level."""
+    def tensor(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    return PoissonMultigrid(
+        coarse_inv=tensor(coarse_inv),
+        factors=tuple(tuple(tuple(tensor(v) for v in axis) for axis in level)
+                      for level in factors),
+        winv=tuple(tensor(w) for w in winv),
+        dims=tuple(tuple(int(m) for m in d) for d in dims),
+        nu1=int(nu1), nu2=int(nu2), omega=float(omega))

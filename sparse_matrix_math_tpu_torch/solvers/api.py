@@ -16,12 +16,13 @@ method ``cg`` only, no preconditioner, no residual trace; with
 most 9 diagonals draws a :class:`PerformanceWarning` (PERF.md has the card's
 numbers).
 
-What :func:`solve` dispatches to in the JAX package and the port does not
-hold yet raises ``NotImplementedError`` naming its ROADMAP item: the methods
-``chebyshev``, ``cg_pipelined`` and ``gmres`` and
-``preconditioner="multigrid"`` (Queue 1, the solver tail).  Their names
-stay in :data:`SOLVERS`' error message, so an unknown method still raises
-``ValueError`` as in the JAX package.
+The method table is the JAX package's: CG, BiCGSymmetric, CGS, BiCGStab,
+Chebyshev, pipelined CG and GMRES, and the four double-word methods.
+``preconditioner="multigrid"`` (or ``"mg"``) builds
+:meth:`~.multigrid.PoissonMultigrid.for_stencil` for a grid stencil, or for a
+CSR or DIA matrix the stencil detector verifies as the Poisson family; the
+V-cycle also serves as the double-word refinement's inner preconditioner when
+the request is pre-routed.
 """
 
 from __future__ import annotations
@@ -37,6 +38,9 @@ from .bicg_symmetric import bicg_symmetric
 from .bicgstab import bicgstab
 from .cg import conjugate_gradient
 from .cgs import conjugate_gradient_squared
+from .chebyshev import chebyshev
+from .gmres import gmres
+from .pipelined import cg_pipelined
 from .types import SolveResult
 
 __all__ = ["SolverConfig", "solve", "SOLVERS"]
@@ -48,11 +52,11 @@ SOLVERS = {
     "cgs": conjugate_gradient_squared,
     "conjugate_gradient_squared": conjugate_gradient_squared,
     "bicgstab": bicgstab,
+    "chebyshev": chebyshev,
+    "cg_pipelined": cg_pipelined,
+    "gmres": gmres,
 }
 
-# methods of the JAX package's table that the port does not hold yet
-_NOT_PORTED = ("chebyshev", "cg_pipelined", "gmres")
-_SOLVER_TAIL = "ROADMAP.md, Queue 1, the solver tail"
 # mixed_cg on a stencil of at most this many diagonals draws a
 # PerformanceWarning (the JAX package's threshold, api.py:323)
 _NARROW_STENCIL = 9
@@ -82,9 +86,7 @@ def _build_preconditioner(a, kind, options):
         # a preconditioner OBJECT passes through: anything with apply(r) -> z
         return kind
     if isinstance(kind, str) and kind.lower() in ("multigrid", "mg"):
-        raise NotImplementedError(
-            f"preconditioner='multigrid' (solvers/multigrid.py) is not ported yet "
-            f"({_SOLVER_TAIL})")
+        return _build_multigrid(a, options)
     if isinstance(a, ReorderedMatrix):
         # the hoisted solvers run in the permuted domain
         # (formats/reorder.py:reorder_hoisted), so the preconditioner is
@@ -109,6 +111,33 @@ def _build_preconditioner(a, kind, options):
     raise ValueError(
         f"preconditioner {kind!r} is not buildable for {type(a).__name__}; construct from "
         "CSR (get_preconditioner) or pass a preconditioner object directly")
+
+
+def _build_multigrid(a, options):
+    """``preconditioner="multigrid"``: the geometric V-cycle of the Poisson
+    stencil family (solvers/multigrid.py).  A GridStencilMatrix is taken as it
+    is; a CSR or DIA matrix is verified entry for entry by the stencil
+    detector first, since a V-cycle applied to another operator would
+    precondition the wrong system."""
+    from ..formats.dia import DIAMatrix
+    from ..formats.stencil import (
+        GridStencilMatrix,
+        try_grid_stencil_from_csr,
+        try_grid_stencil_from_dia,
+    )
+    from .multigrid import PoissonMultigrid
+
+    st = a if isinstance(a, GridStencilMatrix) else None
+    if st is None and isinstance(a, CSRMatrix):
+        st = try_grid_stencil_from_csr(a)
+    if st is None and isinstance(a, DIAMatrix):
+        st = try_grid_stencil_from_dia(a)
+    if st is None:
+        raise ValueError(
+            "preconditioner='multigrid' needs a Poisson-family grid stencil operator "
+            "(GridStencilMatrix, or a CSR that the stencil detector verifies); got "
+            f"{type(a).__name__}")
+    return PoissonMultigrid.for_stencil(st, **options)
 
 
 def _build_preconditioner_for(a, a_source, kind, options):
@@ -176,12 +205,14 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     """
     cfg = (config or SolverConfig()).replace(**overrides)
     method = cfg.method.lower()
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"method {cfg.method!r} is not ported yet ({_SOLVER_TAIL})")
     if method not in SOLVERS and method not in _DF64_METHODS:
         raise ValueError(
             f"unknown method {cfg.method!r}; options: "
-            f"{sorted(set(SOLVERS) | set(_NOT_PORTED) | set(_DF64_METHODS))}")
+            f"{sorted(set(SOLVERS) | set(_DF64_METHODS))}")
+    shape = getattr(a, "shape", None)
+    if shape is not None and getattr(b, "ndim", 0) >= 1 and b.shape[0] != shape[0]:
+        # the JAX package fails here with broadcasting's TypeError
+        raise TypeError(f"b has {b.shape[0]} rows; the matrix has {shape[0]}")
     if method in _DF64_METHODS:
         return _solve_df64(a, b, x0, cfg, method)
     a_source = a  # preconditioners factor from the CSR source below
@@ -306,13 +337,16 @@ def _solve_df64(a, b, x0, cfg: SolverConfig, method: str):
     return fn(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon)
 
 
-# the methods that report floor_hit, and the double-word refinement each
-# escalates to.  The JAX table also sends "gmres" to "bicgstab" (pre-route
-# only); it joins when gmres is ported.
+# the methods that escalate, and the double-word refinement each goes to.
+# GMRES reports no floor_hit (as in the JAX package), so only its pre-route
+# fires: an f32 request below the precision floor goes straight to the
+# nonsymmetric refinement, whose inner BiCGStab needs only a modest relative
+# reduction per round.
 _ESCALATION = {
     "cg": "cg",
     "conjugate_gradient": "cg",
     "bicgstab": "bicgstab",
+    "gmres": "bicgstab",
 }
 
 

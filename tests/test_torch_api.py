@@ -7,8 +7,9 @@ package's.
 * ``solve()``: configuration and overrides, the preconditioner strings and
   objects, the df64 methods, ``auto_format`` and its DIA exception, the
   pre-route and the floor escalation (tests/test_floor_escalation.py's cases),
-  a 2-D ``b`` through ``cg_multi``, and a ``NotImplementedError`` for what the
-  port does not hold yet.  A solve
+  a 2-D ``b`` through ``cg_multi``, the solver tail (GMRES, Chebyshev,
+  pipelined CG, ``preconditioner="multigrid"``) and a wrong-length ``b``.  A
+  solve
   is compared with the JAX package's by status, iterations (within 1 in f64
   for CG, the dots sum in another order; within max(3, 5%) for BiCGStab,
   whose counts wander with rounding) and x (1e-8 of max|x| in f64).  A
@@ -115,7 +116,7 @@ def test_solver_config_fields_match_jax():
         f.name for f in dataclasses.fields(JaxSolverConfig)]
     cfg = smm.SolverConfig(method="bicgstab").replace(epsilon=1e-6)
     assert (cfg.method, cfg.epsilon, cfg.preconditioner_options) == ("bicgstab", 1e-6, {})
-    assert set(smm.SOLVERS) == set(JAX_SOLVERS) - {"chebyshev", "cg_pipelined", "gmres"}
+    assert set(smm.SOLVERS) == set(JAX_SOLVERS)
     assert smm.SOLVERS["cg"] is smm.conjugate_gradient and smm.SOLVERS["cgs"] is smm.cgs
 
 
@@ -179,9 +180,32 @@ def test_unknown_method_lists_every_name():
     ("mg", dict(preconditioner="mg", auto_format=True)),
 ])
 def test_not_ported_yet_raises(what, kw):
-    _, tcsr, b = _system(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        smm.solve(tcsr, torch.from_numpy(b), epsilon=1e-4, **kw)
+    """The solver tail, which raised NotImplementedError until it was ported:
+    each case now gives the JAX package's result (status, iterations within
+    max(3, 10%) in f32, x), or the JAX package's exception type where it
+    raises."""
+    jcsr, tcsr, b = _system(np.float32)
+    try:
+        jres = jsmm.solve(jcsr, jnp.asarray(b), epsilon=1e-4, **kw)
+    except Exception as err:  # noqa: BLE001  (the port must raise the same type)
+        with pytest.raises(type(err)):
+            smm.solve(tcsr, torch.from_numpy(b), epsilon=1e-4, **kw)
+        return
+    tres = smm.solve(tcsr, torch.from_numpy(b), epsilon=1e-4, **kw)
+    assert type(tres).__name__ == type(jres).__name__
+    assert tres.status == int(jres.status) == int(S.SUCCESS), (what, tres, jres)
+    assert_same(tres, jres, band=max(3, int(jres.iterations) // 10), xtol=1e-3)
+
+
+def test_wrong_length_b_raises_type_error():
+    """A b whose length is not the matrix's: the JAX package's TypeError (it
+    fails in broadcasting; the port checks the length)."""
+    jcsr, tcsr, _ = _system(n=3)
+    with pytest.raises(TypeError):
+        jsmm.solve(jcsr, jnp.ones(10))
+    for method in ("cg", "gmres", "cg_df64"):
+        with pytest.raises(TypeError, match="rows"):
+            smm.solve(tcsr, torch.ones(10, dtype=torch.float64), method=method)
 
 
 def test_panel_rhs_raises():

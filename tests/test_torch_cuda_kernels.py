@@ -812,3 +812,49 @@ def test_cg_multi_matches_cpu(cuda_device, kind):
     assert gpu.status.tolist() == cpu.status.tolist() == [0] * 4
     assert (gpu.iterations.cpu() - cpu.iterations).abs().max() <= 2
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
+
+
+# -- the solver tail: GMRES on K1, the multigrid V-cycle ----------------------------
+
+
+@pytest.mark.parametrize("s_step", [1, 8])
+@pytest.mark.parametrize("restart", [32, 16])
+def test_gmres_matches_cpu(cuda_device, restart, s_step):
+    """f64 GMRES(restart) on a DIA matrix on the card (every matvec one K1 launch,
+    1 + 2 x cycles + matvecs in all) against the CPU (the plain product): the
+    same status, iterations within 2, x within 1e-8."""
+    import importlib
+
+    G = importlib.import_module("sparse_matrix_math_tpu_torch.solvers.gmres")
+    res = {}
+    for dev in ("cpu", cuda_device):
+        dia = smm.dia_from_csr(smm.convection_diffusion_2d(40, dtype=torch.float64, device=dev))
+        b = torch.as_tensor(np.random.default_rng(4).standard_normal(1600), device=dev)
+        k1 = K.launches["dia_spmv"]
+        G.loop_counts.update(cycles=0, matvecs=0)
+        res[str(dev)] = smm.gmres(dia, b, epsilon=1e-9, restart=restart, s_step=s_step)
+        if dev != "cpu":
+            c = G.loop_counts
+            assert K.launches["dia_spmv"] - k1 == 1 + 2 * c["cycles"] + c["matvecs"]
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+    assert abs(gpu.iterations - cpu.iterations) <= 2
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-8 * cpu.x.abs().max()
+
+
+def test_multigrid_matches_cpu(cuda_device):
+    """The V-cycle (plain torch ops) on the card: one apply within 1e-12 of the
+    CPU's in f64, and PCG with it on an odd, anisotropic grid with the same
+    status and iterations within 1."""
+    res, z = {}, {}
+    for dev in ("cpu", cuda_device):
+        mg = smm.PoissonMultigrid.for_grid(45, 33, dtype=torch.float64, device=dev)
+        r = torch.as_tensor(np.random.default_rng(5).standard_normal(45 * 33), device=dev)
+        z[str(dev)] = mg.apply(r)
+        a = smm.poisson_2d(45, 33, dtype=torch.float64, device=dev)
+        res[str(dev)] = smm.cg(a, r, epsilon=1e-9, preconditioner=mg)
+    zc, zg = z["cpu"], z[str(cuda_device)].cpu()
+    assert (zg - zc).norm() <= 1e-12 * zc.norm()
+    cpu, gpu = res["cpu"], res[str(cuda_device)]
+    assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
+    assert abs(gpu.iterations - cpu.iterations) <= 1
