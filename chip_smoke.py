@@ -68,7 +68,16 @@ counters reset just before it (K2-bf16 launches at least the inner
 iterations, float32 K2 launches 1 + 2 x rounds), beside plain ``cg`` at the
 same epsilon (wall, device time per iteration), and ``solve(csr, b,
 auto_format=True, matrix_dtype="bfloat16")``, which must keep DIA and warn
-on the 5-point stencil only.  Phase C solves a small system and compares
+on the 5-point stencil only.  Phase G runs the solver tail.  Phase U drives
+the last single-process modules at the bench system's size: ``spmv_throughput``
+for CSR, DIA (K1), ELL (K6), W-SELL (K7) and phase R's routed chain (K11,
+then K7), each beside the same product's CUDA-graph time, ``solve_with_stats``
+beside a plain ``cg``, ``checkpointed_solve`` stopped after two chunks and
+resumed from its file against an uninterrupted run, ``trace`` (its Chrome
+trace must name K2), the command line (``python -m
+sparse_matrix_math_tpu_torch info / solve / bench-spmv --routed``) on a
+``.mtx`` written in the run, and the six ``examples/torch_*.py`` at their
+default sizes.  Phase C solves a small system and compares
 the solution with scipy's direct solve.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
@@ -1579,6 +1588,7 @@ def phase_r(smm, loop, torch, dev, dia_solves):
           f"({c32.nnz / csr_ms / 1e6:.2f} GNNZ/s), torch.sparse_csr_tensor @ x {lib_ms:.4f} ms "
           f"({c32.nnz / lib_ms / 1e6:.2f} GNNZ/s); build {build_s:.1f} s, slot_ratio "
           f"{ra32.slot_ratio:.3f}, {len(ra32.passes)} passes")
+    stats["routed_f32"] = ra32  # phase U times its product through spmv_throughput
     del lib, ra32, ones
     torch.cuda.empty_cache()
 
@@ -1923,6 +1933,29 @@ def lowest_modes(torch, nx: int, k: int, dev):
     return torch.stack(cols, dim=1).to(torch.float32), pairs
 
 
+def launch_meter(mods):
+    """Set the launch counters of the kernel modules ``mods`` to 0 and return
+    (measured, counted): ``counted(run)`` calls ``run()`` as a measured run
+    and returns (its result, its launches), which add to ``measured``."""
+    for mod in mods:
+        mod.reset_launch_counts()
+
+    def live():
+        return {k: v for mod in mods for k, v in mod.launches.items()}
+
+    measured = dict.fromkeys(live(), 0)
+
+    def counted(run):
+        before = live()
+        out = run()
+        added = {k: v - before[k] for k, v in live().items()}
+        for k, v in added.items():
+            measured[k] += v
+        return out, added
+
+    return measured, counted
+
+
 def phase_g(smm, K, loop, torch, dev, dia_solves, nx: int = 1414, m3: int = 243):
     """The solver tail at the JAX bench's sizes: GMRES(32) and its s-step form
     on ``convection_diffusion_2d(1414)`` as DIA (every matvec one K1 launch;
@@ -1952,23 +1985,7 @@ def phase_g(smm, K, loop, torch, dev, dia_solves, nx: int = 1414, m3: int = 243)
           "cg_solve) at full width")
     t_start = time.perf_counter()
     stats = {"runs": {}}
-    for mod in (K, T, W, E, D):
-        mod.reset_launch_counts()
-
-    def live():
-        return {k: v for mod in (K, T, W, E, D) for k, v in mod.launches.items()}
-
-    measured = dict.fromkeys(live(), 0)
-
-    def counted(run):
-        """``run()`` as a measured run: (its result, its launches), which add
-        to the phase's."""
-        before = live()
-        out = run()
-        added = {k: v - before[k] for k, v in live().items()}
-        for k, v in added.items():
-            measured[k] += v
-        return out, added
+    measured, counted = launch_meter((K, T, W, E, D))
 
     # -- 1. GMRES(32) on convection_diffusion_2d(1414), f32 DIA ---------------
     cd64 = smm.convection_diffusion_2d(nx, dtype=torch.float64, device=dev)
@@ -2207,6 +2224,279 @@ def phase_g(smm, K, loop, torch, dev, dia_solves, nx: int = 1414, m3: int = 243)
     return stats
 
 
+def write_mtx(path, csr):
+    """The lower triangle of a symmetric CSR matrix as a MatrixMarket
+    coordinate real symmetric file (1-based indices), written in bulk."""
+    import numpy as np
+
+    rows, cols = csr.row_ids.cpu().numpy(), csr.indices.cpu().numpy()
+    keep = rows >= cols
+    table = np.column_stack([rows[keep] + 1, cols[keep] + 1,
+                             csr.data.cpu().numpy().astype(np.float64)[keep]])
+    np.savetxt(path, table, fmt=["%d", "%d", "%.17g"], comments="",
+               header=f"%%MatrixMarket matrix coordinate real symmetric\n"
+                      f"{csr.shape[0]} {csr.shape[1]} {int(keep.sum())}")
+
+
+def run_example(name, dev):
+    """Run ``examples/<name>.py``'s ``main`` in this process at its default
+    size, as ``python examples/<name>.py`` runs it (with ``--cpu`` when
+    ``dev`` is the CPU); its printed lines, also printed here."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(_ROOT, "examples",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    argv = sys.argv
+    sys.argv = [f"{name}.py"] + ([] if dev.type == "cuda" else ["--cpu"])
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        sys.argv = argv
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"  {name}: {line}")
+    print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return text
+
+
+def phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its, nx: int = 1414,
+            chunk: int = 500):
+    """The last single-process modules at the bench system's size
+    (``poisson_2d(1414)``): ``spmv_throughput`` for CSR, DIA (K1), ELL (K6)
+    and W-SELL (K7) in f32 and for phase R's routed chain (K11 per pass,
+    then K7), each beside the same product's time from a CUDA graph on the
+    same inputs (a reading below it would be a missing sync) and the
+    earlier phases' readings in ``earlier`` (name: (what, ms)); then
+    ``solve_with_stats(cg)`` on DIA in f64 beside a plain ``cg``;
+    ``checkpointed_solve`` at chunk 500, uninterrupted and stopped after two
+    chunks then resumed from the file; ``trace`` around 3 CG iterations;
+    the CLI as subprocesses on a ``poisson_2d(256)`` ``.mtx`` written here;
+    and the six ``examples/torch_*.py`` at their default sizes.  ``nx`` and
+    ``chunk`` are the grid side and the checkpoint chunk (smaller ones
+    rehearse the phase).  Returns the
+    phase's readings, with ``launches``: every kernel's launches over the
+    measured runs (the graph captures are not counted)."""
+    import glob
+    import json as _json
+    import tempfile
+
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv_df as D
+    from sparse_matrix_math_tpu_torch.ops import ell_spmv as E
+    from sparse_matrix_math_tpu_torch.ops import stream_gather as R
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+    from sparse_matrix_math_tpu_torch.utils.profiling import trace
+
+    print("== phase U: profiling, checkpoint and resume, the CLI and the examples")
+    t_start = time.perf_counter()
+    stats = {"throughput": {}}
+
+    # -- 1. spmv_throughput per format, beside the same product's graph time ---
+    t0 = time.perf_counter()
+    p32 = smm.poisson_2d(nx, dtype=torch.float32, device=dev)
+    ops = {"csr": p32, "dia": smm.dia_from_csr(p32), "ell": smm.ell_from_csr(p32),
+           "wsell": smm.wsell_from_csr(p32), "routed": routed}
+    torch.cuda.synchronize()
+    print(f"poisson_2d({nx}) f32 as CSR, DIA, ELL and W-SELL in {time.perf_counter() - t0:.1f} s; "
+          f"the routed chain is phase R's (uniform_random_csr(2_000_000, per_row=5))")
+    graph = {}
+    for name, op in ops.items():
+        x = torch.ones(op.shape[1], dtype=op.dtype, device=dev)
+        graph[name] = graph_ms(torch, lambda: smm.rmult(op, x))
+
+    measured, counted = launch_meter((K, T, W, E, D, R))
+    calls = 20 + 2  # spmv_throughput's timed products and its warm-up
+    expect = {"csr": {}, "dia": {"dia_spmv": calls}, "ell": {"ell_spmv": calls},
+              "wsell": {"wsell_spmv": calls},
+              "routed": {"stream_gather": calls * len(routed.passes), "wsell_spmv": calls}}
+    for name, op in ops.items():
+        st, added = counted(lambda: smm.spmv_throughput(op))
+        ms = 1e3 * st["seconds_per_op"]
+        what, e_ms = earlier.get(name, ("", None))
+        beside = f"; {what} {e_ms:.4f} ms" if e_ms is not None else ""
+        print(f"  spmv_throughput({type(op).__name__}, nnz={op.nnz}): {ms:.4f} ms per op "
+              f"({st['gnnz_per_s']:.2f} GNNZ/s, {st['gflop_per_s']:.2f} GFLOP/s); the same "
+              f"product from a CUDA graph {graph[name]:.4f} ms{beside}")
+        require(set(st) == {"seconds_per_op", "gnnz_per_s", "gflop_per_s"}
+                and st["gnnz_per_s"] > 0
+                and abs(st["gflop_per_s"] - 2 * st["gnnz_per_s"]) <= 1e-12 * st["gflop_per_s"],
+                f"spmv_throughput({name}): the JAX package's three keys, positive rates",
+                quiet=True)
+        # the graph replays the same launches with no host between them: a
+        # wrapper reading under it (beyond the replays' 5% spread) would
+        # mean the timed loop ended before the card did
+        require(ms >= 0.95 * graph[name],
+                f"spmv_throughput({name}): {ms:.4f} ms per op is not below the product's "
+                f"graph time {graph[name]:.4f} ms")
+        require(all(added[k] == v for k, v in expect[name].items()),
+                f"spmv_throughput({name}) launched {expect[name] or 'no kernel'}: "
+                f"{ {k: v for k, v in added.items() if v} }")
+        stats["throughput"][name] = {**st, "graph_ms": graph[name]}
+    d32 = ops["dia"]
+    del ops
+
+    # -- 2. solve_with_stats(cg) on DIA, f64, beside a plain cg -----------------
+    p64 = smm.poisson_2d(nx, dtype=torch.float64, device=dev)
+    dia64 = smm.dia_from_csr(p64)
+    b = dia64 @ torch.ones(dia64.shape[0], dtype=torch.float64, device=dev)
+    kw = dict(epsilon=1e-8, max_iterations=20000)
+    ss, added = counted(lambda: smm.solve_with_stats(smm.cg, dia64, b, **kw))
+    (plain, plain_s), _ = counted(lambda: timed_solve(torch, lambda: smm.cg(dia64, b, **kw)))
+    rate = ss.iterations * dia64.nnz / ss.wall_seconds / 1e9
+    print(f"  solve_with_stats(cg, DIA f64): {ss!r}, {ss.spmv_gnnz_per_s:.3f} GNNZ/s; plain cg "
+          f"{plain.status_enum().name} in {plain.iterations} iterations, {plain_s:.3f} s "
+          f"(phase B's cg f64 {cg_f64_its}); {added['dia_spmv_padded']} K2 launches in the "
+          f"warm and timed solves")
+    require(ss.status == plain.status == smm.SolverStatus.SUCCESS
+            and ss.iterations == plain.iterations,
+            f"solve_with_stats(cg): SUCCESS in {ss.iterations} iterations, as plain cg")
+    require(abs(ss.spmv_gnnz_per_s - rate) <= 1e-9 * rate,
+            f"solve_with_stats(cg): spmv_gnnz_per_s {ss.spmv_gnnz_per_s:.6f} = iterations x nnz "
+            f"/ wall")
+    require(added["dia_spmv_padded"] >= 2 * ss.iterations,
+            f"solve_with_stats(cg): K2 launched {added['dia_spmv_padded']} >= 2 x "
+            f"{ss.iterations} times")
+    stats["solve_with_stats"] = {"iterations": ss.iterations, "wall_s": ss.wall_seconds,
+                                 "gnnz_per_s": ss.spmv_gnnz_per_s, "plain_cg_s": plain_s}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 3. checkpointed_solve in chunks: whole, and stopped then resumed ----
+        kw = dict(chunk_iterations=chunk, epsilon=1e-8, max_iterations=40000)
+
+        class Preempted(Exception):
+            pass
+
+        def stopping_after(n):
+            done = [0]
+
+            def run(*args, **kwargs):
+                if done[0] == n:
+                    raise Preempted
+                done[0] += 1
+                return smm.cg(*args, **kwargs)
+            return run
+
+        whole_path, cut_path = os.path.join(tmp, "whole.npz"), os.path.join(tmp, "cut.npz")
+        (whole, whole_s), _ = counted(lambda: timed_solve(torch, lambda: smm.checkpointed_solve(
+            smm.cg, dia64, b, checkpoint_path=whole_path, **kw)))
+        try:
+            counted(lambda: smm.checkpointed_solve(stopping_after(2), dia64, b,
+                                                   checkpoint_path=cut_path, **kw))
+            raise CheckFailed("the stopping solver was not stopped")
+        except Preempted:
+            pass
+        saved = smm.load_checkpoint(cut_path).iterations_done
+        (resumed, resumed_s), _ = counted(lambda: timed_solve(torch, lambda: smm.checkpointed_solve(
+            smm.cg, dia64, b, checkpoint_path=cut_path, **kw)))
+        bitwise = bool(torch.equal(whole.x, resumed.x))
+        rel = float((whole.x - resumed.x).norm() / whole.x.norm())
+        t_whole, t_resumed = (host_residuals(p64, b, r.x)[0] for r in (whole, resumed))
+        print(f"  checkpointed_solve(cg, chunk {chunk}) f64: uninterrupted {whole!r} in "
+              f"{whole_s:.2f} s (host f64 {t_whole:.4e}); stopped after two chunks ({saved} "
+              f"iterations saved), resumed {resumed!r} in {resumed_s:.2f} s (host f64 "
+              f"{t_resumed:.4e}); x bit for bit: {bitwise} (relative difference {rel:.3e})")
+        require(saved == 2 * chunk,
+                f"checkpoint after two chunks holds {saved} = {2 * chunk} iterations")
+        require(whole.status == resumed.status == smm.SolverStatus.SUCCESS
+                and whole.iterations == resumed.iterations,
+                f"checkpointed_solve: resumed run SUCCESS in {resumed.iterations} iterations, "
+                f"as the uninterrupted one")
+        require(bitwise or rel <= 1e-12,
+                f"checkpointed_solve: resumed x {'bit for bit' if bitwise else 'within 1e-12'} "
+                f"the uninterrupted one")
+        require(max(t_whole, t_resumed) <= 1e-8,
+                f"checkpointed_solve: host float64 residuals {t_whole:.4e}, {t_resumed:.4e} "
+                f"<= 1e-8")
+        stats["checkpoint"] = {"iterations": whole.iterations, "whole_s": whole_s,
+                               "resumed_s": resumed_s, "x_bitwise": bitwise, "x_rel": rel}
+        del dia64, p64, b
+
+        # -- 4. trace around 3 CG iterations on DIA f32 --------------------------
+        b32 = d32 @ torch.ones(d32.shape[0], dtype=torch.float32, device=dev)
+        trace_dir = os.path.join(tmp, "trace")
+        with trace(trace_dir):
+            counted(lambda: smm.cg(d32, b32, epsilon=1e-12, max_iterations=3))
+        files = glob.glob(os.path.join(trace_dir, "trace.*.json"))
+        require(len(files) == 1, f"trace wrote one Chrome trace ({len(files)} files)")
+        with open(files[0]) as f:
+            kernels = {e.get("name", "") for e in _json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"}
+        k2 = sorted(n for n in kernels if "dia_staged_kernel" in n or "dia_padded_kernel" in n)
+        print(f"  trace: {os.path.getsize(files[0])} bytes, {len(kernels)} kernel names, K2 as "
+              f"{k2[:1]}")
+        require(bool(k2), "trace names the K2 kernel")
+        del d32, b32
+
+        # -- 5. the CLI as subprocesses on a poisson_2d(256) .mtx ----------------
+        mtx = os.path.join(tmp, "poisson_2d_256.mtx")
+        write_mtx(mtx, smm.poisson_2d(256, device="cpu"))
+        cli = {"info": ["info", mtx], "solve": ["solve", mtx],
+               "bench-spmv": ["bench-spmv", mtx, "--routed"]}
+        t0 = time.perf_counter()
+        on = [] if dev.type == "cuda" else ["--device", str(dev)]  # the card is the default
+        procs = {k: subprocess.Popen([sys.executable, "-m", "sparse_matrix_math_tpu_torch", *on,
+                                      *a], cwd=_ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, a in cli.items()}
+        outs = {}
+        for k, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            require(proc.returncode == 0, f"CLI {k}: exit code {proc.returncode} ({err[-500:]})")
+            outs[k] = _json.loads(out.strip().splitlines()[-1])
+            print(f"  python -m sparse_matrix_math_tpu_torch {' '.join(cli[k][:1] + cli[k][2:])}: "
+                  f"{out.strip().splitlines()[-1]}")
+        print(f"  the CLI's three commands side by side in {time.perf_counter() - t0:.1f} s")
+        require(outs["info"]["shape"] == [65536, 65536] and outs["info"]["symmetric_pattern"]
+                and outs["info"]["dtype"] == "float64",
+                "CLI info: shape, dtype and symmetric pattern")
+        require(outs["solve"]["status"] == "SUCCESS", "CLI solve: SUCCESS")
+        require(all(isinstance(outs["bench-spmv"].get(k), dict)
+                    and outs["bench-spmv"][k]["gnnz_per_s"] > 0 for k in ("dia", "ell", "wsell"))
+                and "rsell" in outs["bench-spmv"],
+                "CLI bench-spmv --routed reports dia, ell and wsell (and rsell)")
+        stats["cli"] = outs
+
+    # -- 6. the six examples at their default sizes on the card ------------------
+    checks = {
+        # at 256 the f32 IC0 solve floors and escalates: a DfSolveResult
+        "torch_poisson_solve": ["PCG+IC0: ", "status=SUCCESS"],
+        "torch_unstructured_solve": ["auto-format CG: status=0", "statuses=[0, 0, 0, 0]",
+                                     "nonsymmetric BiCGStab+SGS: status=0",
+                                     "nonsymmetric GMRES+ILU0: status=0"],
+        "torch_multigrid_solve": ["PCG+V-cycle", "iterations"],
+        "torch_df64_solve": ["cg_df64: status=SUCCESS", "cg_ir_df64 (+mg inner): status=SUCCESS"],
+        "torch_accuracy_autopilot": ["floor_hit = ", "DfSolveResult SUCCESS"],
+        "torch_poisson3d_1e8": ["SUCCESS"],
+    }
+    for name, want in checks.items():
+        text, added = counted(lambda: run_example(name, dev))
+        require(all(w in text for w in want), f"{name}: prints {want}")
+        if name == "torch_df64_solve":
+            line = [ln for ln in text.splitlines() if "true residual (host f64)" in ln][0]
+            require(float(line.split(":")[1]) <= 1e-10, f"{name}: {line.strip()}")
+        print(f"  {name} launches: { {k: v for k, v in added.items() if v} }")
+
+    stats["launches"] = measured
+    stats["seconds"] = time.perf_counter() - t_start
+    for kname in ("dia_spmv", "dia_spmv_padded", "ell_spmv", "wsell_spmv", "stream_gather",
+                  "dia_spmv_padded_df"):
+        require(measured[kname] > 0, f"phase U launched {kname} {measured[kname]} times",
+                quiet=True)
+    print(f"phase U launches (measured runs): {measured}; phase U took "
+          f"{stats['seconds']:.1f} s")
+    return stats
+
+
 def phase_c(smm, torch, dev):
     """A small solve against scipy's direct solve."""
     import numpy as np
@@ -2280,6 +2570,15 @@ def main() -> int:
     rstats, rcounts = phase_r(smm, _loop, torch, dev, dia_solves)
     hstats = phase_h(smm, K, _loop, torch, dev)
     glaunch = phase_g(smm, K, _loop, torch, dev, dia_solves)["launches"]
+    earlier = {"dia": ("phase A's K1 at the same shape, CUDA graph", stats["dia_spmv"]["ms"]),
+               "ell": ("phase W's K6 at laplace_3d_jittered(113), events",
+                       wstats["ell_spmv"]["ms"]),
+               "wsell": ("phase W's K7 at laplace_3d_jittered(113), events",
+                         wstats["wsell_spmv"]["ms"]),
+               "routed": ("phase R's chain, events", rstats["chain_ms"])}
+    ustats = phase_u(smm, K, torch, dev, earlier, rstats.pop("routed_f32"), cg_f64_its)
+    ulaunch = ustats["launches"]
+    print("PHASE_U " + json.dumps({k: v for k, v in ustats.items() if k != "launches"}))
     phase_c(smm, torch, dev)
 
     def entry(name, source, replaces, launches, st, **extra):
@@ -2293,6 +2592,9 @@ def main() -> int:
                                    "planes_bound_ms", "layout_device_bytes", "layout_bytes",
                                    "layout_build_s", "same_as_built")}
 
+    # every entry's launches also count phase U's measured runs
+    # (phase_u_launches: profiling, checkpoint and resume, the examples; the
+    # CLI runs in subprocesses, whose launches this process does not see)
     kernels = [
         # K2/K3: ms from a CUDA graph of 20 calls (wrapper_ms through the
         # wrapper), bound_ms k2_bytes, at poisson_2d(1414) f32; every phase-A
@@ -2300,9 +2602,11 @@ def main() -> int:
         # ops/dia_spmv.py staged_plan took (variant); launches are phase B's
         # and phase G's measured runs' (cg on DIA, cg_solve)
         entry("dia_staged_kernel / dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)",
-              _SOURCE, f"{_PALLAS}:254", counts["dia_spmv_padded"] + glaunch["dia_spmv_padded"],
+              _SOURCE, f"{_PALLAS}:254", counts["dia_spmv_padded"] + glaunch["dia_spmv_padded"]
+              + ulaunch["dia_spmv_padded"],
               stats["dia_spmv_padded"], phase_b_launches=counts["dia_spmv_padded"],
               phase_g_launches=glaunch["dia_spmv_padded"],
+              phase_u_launches=ulaunch["dia_spmv_padded"],
               also_replaces=f"{_PALLAS}:281", wrapper_ms=stats["dia_spmv_padded"]["wrapper_ms"],
               variant=stats["dia_spmv_padded"]["variant"],
               cases=stats["dia_spmv_padded"]["cases"]),
@@ -2311,7 +2615,8 @@ def main() -> int:
         # k2_bytes, at poisson_2d(1414); every system in cases; launches are
         # phase H's two measured mixed_cg solves
         entry("dia_staged_kernel<__nv_bfloat16, float> (dia_spmv_padded on bf16 diagonals)",
-              _SOURCE, f"{_PALLAS}:254", hstats["launches"], hstats,
+              _SOURCE, f"{_PALLAS}:254", hstats["launches"] + ulaunch["dia_spmv_padded_bf16"],
+              hstats, phase_u_launches=ulaunch["dia_spmv_padded_bf16"],
               also_replaces=f"{_PALLAS}:281", entry=f"{_PALLAS}:356",
               variant=hstats["variant"],
               library_of="torch.sparse_csr_tensor(f32) @ x, the nearest call: no PyTorch "
@@ -2322,22 +2627,25 @@ def main() -> int:
         # wrapper) at poisson_2d(1414) f32; launches are phase B's and phase
         # G's measured runs' (every matvec of the solver tail on DIA)
         entry("dia_kernel (dia_spmv)", _SOURCE, f"{_PALLAS}:91",
-              counts["dia_spmv"] + glaunch["dia_spmv"], stats["dia_spmv"],
+              counts["dia_spmv"] + glaunch["dia_spmv"] + ulaunch["dia_spmv"], stats["dia_spmv"],
               wrapper_ms=stats["dia_spmv"]["wrapper_ms"], phase_b_launches=counts["dia_spmv"],
-              phase_g_launches=glaunch["dia_spmv"]),
+              phase_g_launches=glaunch["dia_spmv"], phase_u_launches=ulaunch["dia_spmv"],
+              phase_u_spmv_throughput=ustats["throughput"]["dia"]),
         # K4/K5: ms from a CUDA graph of 20 applies (wrapper_ms through the
         # wrapper), bound_ms each input read once and z written once,
         # traffic_bound_ms the variant's own traffic; variants: what the rule
         # of ops/trisweep.py window_tile took on each phase-A case
         entry("sgs_apply (smm_sgs_apply_*: window_kernel forward + backward with D; large "
               "reach: scale_kernel + sweep_kernel)", _TRI_SOURCE,
-              f"{_TRI_PALLAS}:54", pcounts["sgs_apply"], stats["sgs_apply"],
+              f"{_TRI_PALLAS}:54", pcounts["sgs_apply"] + ulaunch["sgs_apply"],
+              stats["sgs_apply"], phase_u_launches=ulaunch["sgs_apply"],
               entry=f"{_TRI_PALLAS}:168", wrapper_ms=stats["sgs_apply"]["wrapper_ms"],
               traffic_bound_ms=stats["sgs_apply"]["traffic_bound_ms"],
               variants=stats["sgs_apply"]["variants"]),
         entry("tri_pair_apply (smm_tri_pair_apply_*: window_kernel forward + backward; large "
               "reach: scale_kernel + sweep_kernel)", _TRI_SOURCE,
-              f"{_TRI_PALLAS}:54", pcounts["tri_pair_apply"], stats["tri_pair_apply"],
+              f"{_TRI_PALLAS}:54", pcounts["tri_pair_apply"] + ulaunch["tri_pair_apply"],
+              stats["tri_pair_apply"], phase_u_launches=ulaunch["tri_pair_apply"],
               entry=f"{_TRI_PALLAS}:243", wrapper_ms=stats["tri_pair_apply"]["wrapper_ms"],
               traffic_bound_ms=stats["tri_pair_apply"]["traffic_bound_ms"],
               variants=stats["tri_pair_apply"]["variants"]),
@@ -2345,14 +2653,18 @@ def main() -> int:
         # counts the stored entries, layout_bytes the layout's slots (padding
         # too), planes_bound_ms the planes' ELL / W-SELL model
         entry("sell_kernel for ell_kernel (ell_spmv)", _SELL_SOURCE, f"{_PALLAS}:392",
-              wcounts["ell_spmv"], wstats["ell_spmv"], entry=f"{_PALLAS}:405",
+              wcounts["ell_spmv"] + ulaunch["ell_spmv"], wstats["ell_spmv"],
+              entry=f"{_PALLAS}:405", phase_u_launches=ulaunch["ell_spmv"],
+              phase_u_spmv_throughput=ustats["throughput"]["ell"],
               layout=layout(wstats["ell_spmv"])),
         # K7: launches are phase W's and phase G's measured runs' (the ILU0
         # factors' strict products under GMRES)
         entry("sell_kernel for wsell_kernel k=1 (wsell_spmv)", _SELL_SOURCE,
-              f"{_WSELL_PALLAS}:89", wcounts["wsell_spmv"] + glaunch["wsell_spmv"],
+              f"{_WSELL_PALLAS}:89",
+              wcounts["wsell_spmv"] + glaunch["wsell_spmv"] + ulaunch["wsell_spmv"],
               wstats["wsell_spmv"], phase_w_launches=wcounts["wsell_spmv"],
-              phase_g_launches=glaunch["wsell_spmv"],
+              phase_g_launches=glaunch["wsell_spmv"], phase_u_launches=ulaunch["wsell_spmv"],
+              phase_u_spmv_throughput=ustats["throughput"]["wsell"],
               also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
               layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],
               routed_final_pass=rstats["final_pass"]),
@@ -2362,7 +2674,8 @@ def main() -> int:
         # each solve's, beside the phase W rmult checks' launches (W-SELL and
         # ELL panels)
         entry("sell_kernel k=2..8 for wsell_spmm_kernel (wsell_spmm; ELL panels)", _SELL_SOURCE,
-              f"{_WSELL_PALLAS}:165", mcounts["wsell_spmm"], wstats["wsell_spmm"],
+              f"{_WSELL_PALLAS}:165", mcounts["wsell_spmm"] + ulaunch["wsell_spmm"],
+              wstats["wsell_spmm"], phase_u_launches=ulaunch["wsell_spmm"],
               entry=f"{_WSELL_PALLAS}:287", layout_bytes=wstats["wsell_spmm"]["layout_bytes"],
               planes_bound_ms=wstats["wsell_spmm"]["planes_bound_ms"],
               k7_columns_ms=wstats["wsell_spmm"]["k7_columns_ms"],
@@ -2370,7 +2683,8 @@ def main() -> int:
               launches_per_solve={k: v.get("k8_launches", 0) for k, v in mstats.items()},
               phase_w_launches=wcounts["wsell_spmm"], ell_panel_launches=wcounts["ell_spmm"]),
         entry("dia_padded_df_kernel (dia_spmv_padded_df, dia_spmv_streamed_df)", _DF_SOURCE,
-              f"{_PALLAS}:523", dcounts["dia_spmv_padded_df"], dstats,
+              f"{_PALLAS}:523", dcounts["dia_spmv_padded_df"] + ulaunch["dia_spmv_padded_df"],
+              dstats, phase_u_launches=ulaunch["dia_spmv_padded_df"],
               also_replaces=f"{_PALLAS}:594", entry=f"{_PALLAS}:560",
               f64_csr_ms=dstats["f64_csr_ms"]),
         # ms, plain_ms and bound_ms are of the chain's largest routing pass;
@@ -2378,7 +2692,10 @@ def main() -> int:
         # that the whole chain (every pass, then K7) computes; launches sums
         # the front-door solves that launches_per_solve lists one by one
         entry("stream_gather_kernel (stream_gather)", _STREAM_SOURCE, f"{_RSELL_PALLAS}:32",
-              rcounts["stream_gather"], rstats, also_replaces=f"{_RSELL_PALLAS}:47",
+              rcounts["stream_gather"] + ulaunch["stream_gather"], rstats,
+              phase_u_launches=ulaunch["stream_gather"],
+              phase_u_spmv_throughput=ustats["throughput"]["routed"],
+              also_replaces=f"{_RSELL_PALLAS}:47",
               entry=f"{_RSELL_PALLAS}:89", library_of="the whole chain",
               passes_ms=rstats["passes_ms"], final_wsell_ms=rstats["final_ms"],
               chain_ms=rstats["chain_ms"], chain_bound_ms=rstats["chain_bound_ms"],

@@ -12,7 +12,11 @@ Chebyshev, the geometric multigrid V-cycle :class:`PoissonMultigrid`), and get
 a :class:`SolveResult` back (:func:`cg_solve` is a CG solve that autograd
 differentiates); :func:`cg_multi` (or :func:`solve` with a ``b``
 of shape ``(n, m)``) solves m right-hand sides through one loop and returns
-a :class:`MultiSolveResult`.  A large CSR matrix on a CUDA device is
+a :class:`MultiSolveResult`.  :func:`solve_with_stats` and
+:func:`spmv_throughput` time solves and products, :func:`checkpointed_solve`
+runs a solve in checkpointed restart chunks, and ``python -m
+sparse_matrix_math_tpu_torch`` is the command line (``info``, ``solve``,
+``bench-spmv``).  A large CSR matrix on a CUDA device is
 routed to DIA, else to W-SELL, else (with no preconditioner) through an RCM
 renumbering to W-SELL.  The matvec of a DIA solve is the hand-written kernel
 in ``csrc/dia_spmv.cu`` and its SGS, IC0 or ILU0 apply one call of the fused
@@ -129,14 +133,22 @@ from .solvers import (
     solve,
 )
 from .utils import (
+    SolveStats,
+    checkpointed_solve,
     convection_diffusion_2d,
     laplace_1d,
     laplace_3d_jittered,
+    load_checkpoint,
+    load_csr_npz,
     poisson_2d,
     poisson_3d,
     poisson_3d_27pt,
     random_spd_csr,
+    save_checkpoint,
+    save_csr_npz,
     sherman1_tiled,
+    solve_with_stats,
+    spmv_throughput,
     uniform_random_csr,
 )
 
@@ -162,4 +174,6 @@ __all__ = [
     "df_operator_from_host_csr", "cg_df64", "bicgstab_df64", "cg_ir_df64", "bicgstab_ir_df64",
     "convection_diffusion_2d", "laplace_1d", "laplace_3d_jittered", "poisson_2d",
     "poisson_3d", "poisson_3d_27pt", "random_spd_csr", "sherman1_tiled", "uniform_random_csr",
+    "checkpointed_solve", "load_checkpoint", "save_checkpoint", "save_csr_npz", "load_csr_npz",
+    "SolveStats", "solve_with_stats", "spmv_throughput",
 ]

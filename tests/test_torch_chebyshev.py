@@ -135,23 +135,34 @@ def test_pipelined_f64_matches_jax(name, replace_every):
 def test_pipelined_replacement_bounds_drift_f32():
     """tests/test_pipelined.py's drift case in both packages: without
     replacement the f32 recurrence under-reports the true residual more than
-    100-fold, with it the two agree to 2x; both packages run to the cap."""
-    jcsr = jax_gen.poisson_2d(64, dtype=np.float32)
-    tcsr = port_csr(jcsr)
-    ones = np.ones(jcsr.shape[0], np.float32)
-    b = np.array(jcsr @ jnp.asarray(ones))
-    dense = tcsr.to_dense().double().numpy()
-    for every in (0, 25):
+    10-fold, with it the two agree to 2x; both packages run to the cap.
+
+    How far the recurrence drifts in 3000 f32 steps is set by rounding alone.
+    On poisson_2d(64) and (48), b = A @ ones, the true residual over the
+    recurrence's was 588 and 3780 in the JAX package and 68 and 460 in the
+    port (torch.dot); summing the port's dots pairwise or with torch.sum gave
+    110-899; on poisson_2d(56) the JAX package's fell to 37, and on
+    poisson_2d(64) with a standard-normal b the port's to 15, all on one
+    CPU.  With replacement every 25 steps the ratio was 1.00 in all of them.
+    So the bound that tells the two regimes apart on any rounding path is
+    10x, held in both packages."""
+    for nx, every in ((64, 0), (64, 25), (48, 0), (48, 25)):
+        jcsr = jax_gen.poisson_2d(nx, dtype=np.float32)
+        tcsr = port_csr(jcsr)
+        b = np.array(jcsr @ jnp.ones(jcsr.shape[0], jnp.float32))
+        dense = tcsr.to_dense().double().numpy()
         kw = dict(max_iterations=3000, epsilon=1e-12, replace_every=every)
         jres = jsmm.cg_pipelined(jcsr, jnp.asarray(b), **kw)
         tres = smm.cg_pipelined(tcsr, torch.from_numpy(b), **kw)
         assert tres.status == int(jres.status) == int(S.MAX_ITERATIONS_REACHED)
         assert tres.iterations == int(jres.iterations) == 3000
-        true = np.linalg.norm(b - dense @ tres.x.double().numpy())
-        if every == 0:
-            assert true > 100 * float(tres.residual_norm)
-        else:
-            assert true <= 2 * float(tres.residual_norm) and true < 1e-2
+        for x, claimed in ((tres.x.double().numpy(), float(tres.residual_norm)),
+                           (np.asarray(jres.x, np.float64), float(jres.residual_norm))):
+            true = np.linalg.norm(b - dense @ x)
+            if every == 0:
+                assert true > 10 * claimed
+            else:
+                assert true <= 2 * claimed and true < 1e-2
 
 
 def test_pipelined_cap_and_solve_front_door():

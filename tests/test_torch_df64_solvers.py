@@ -7,9 +7,10 @@ Held: the same status, iteration counts within 2 for the full double-word
 recurrences (the JAX package computes its error-free transforms through
 float64 on the CPU, which moves the step that crosses eps by at most one or
 two) and x within relative 1e-10 of the JAX solution; for the refinement
-solvers the same status and outer rounds, and total inner f32 iterations
-within 5% (the f32 inner dots sum in other orders: ``torch.dot`` here,
-``jnp.sum`` there).  Every SUCCESS is checked on the host: ``||b - A x||``
+solvers the same status, outer rounds within one, and total inner f32
+iterations within 5% plus a round's worth for each round apart (the f32
+inner dots sum in other orders: ``torch.dot`` here, ``jnp.sum`` there; see
+test_refinement_matches_jax).  Every SUCCESS is checked on the host: ``||b - A x||``
 in float64 against the operator's float64 values is at most eps.
 """
 
@@ -161,6 +162,15 @@ def _preconditioners(kind, name, n, j, t):
 @pytest.mark.parametrize("solver,name,n,fmt,pre", IR_CASES,
                          ids=[f"{c[0]}-{c[3]}-{c[4]}" for c in IR_CASES])
 def test_refinement_matches_jax(solver, name, n, fmt, pre):
+    """Both solves end in SUCCESS at the host's float64 residual, so the last
+    round of each is the first to cross eps; the f32 inner dots' summation
+    order can put that crossing one round later.  On the SGS-preconditioned
+    convection-diffusion case (seeds 0-2) the port ends after 5 or 6 rounds
+    depending on the order alone (BLAS sdot, torch.sum, pairwise, the
+    correctly rounded sum), and the JAX package after 5 or 6.  So the rounds
+    agree within one, and the inner iterations within 5% plus one round's
+    worth for each round apart (a round taken as the longer mean round of
+    the two solves)."""
     j, t, csr, b = _system(name, n, fmt)
     eps = 1e-10
     jpre, tpre = _preconditioners(pre, name, n, j, t)
@@ -168,8 +178,11 @@ def test_refinement_matches_jax(solver, name, n, fmt, pre):
     got = getattr(smm, solver)(t, b, epsilon=eps, preconditioner=tpre)
     _check_success(got, csr, b, eps)
     assert got.status == int(want.status)
-    assert got.outer_rounds == int(want.outer_rounds) >= 2
-    assert abs(got.iterations - int(want.iterations)) <= 0.05 * int(want.iterations)
+    w_rounds, w_its = int(want.outer_rounds), int(want.iterations)
+    apart = abs(got.outer_rounds - w_rounds)
+    assert apart <= 1 and min(got.outer_rounds, w_rounds) >= 2
+    round_len = max(w_its / w_rounds, got.iterations / got.outer_rounds)
+    assert abs(got.iterations - w_its) <= 0.05 * w_its + apart * round_len
 
 
 def test_padded_sgs_inner_applies_in_the_padded_layout(monkeypatch):

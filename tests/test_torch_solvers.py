@@ -4,7 +4,8 @@ Pallas kernel in interpret mode.
 
 Tolerances: in f64 at eps 1e-8 the status and iteration count are
 identical and x agrees to 1e-10 relative to max|x| (only the dots' summation
-order differs).  In f32 at eps 1e-5 the status is identical and the
+order differs); BiCGStab's x is held to the bound its residuals give (see
+test_f64_matches_jax).  In f32 at eps 1e-5 the status is identical and the
 iteration counts agree within max(2, 2%): f32 rounding differences move the
 step at which the recurrence crosses eps.
 """
@@ -62,12 +63,26 @@ def _solve_both(core, jacobi, jcsr, jdia, tdia, b, eps, record=False):
 @pytest.mark.parametrize("core,jacobi", SOLVERS, ids=SOLVER_IDS)
 @pytest.mark.parametrize("name", MATRICES)
 def test_f64_matches_jax(name, core, jacobi):
+    """CG's x agrees to 1e-10 relative to max|x|.  BiCGStab's x is held to
+    what the two solves guarantee, since its short recurrences carry a
+    one-ulp difference in a dot forward: on poisson_2d(16) the traces part at
+    step 3, and x moves by up to 3.4e-9 (1.35e-9 max|x|) between summation
+    orders of the dots (BLAS ddot, torch.sum, pairwise, sequential, the
+    correctly rounded sum) on one CPU, each order's x solving the system.
+    With r = b - A x for each solve, x_port - x_jax = A^-1 (r_jax - r_port),
+    so |x_port - x_jax|_inf <= ||A^-1||_2 (||r_port||_2 + ||r_jax||_2)."""
     jcsr, jdia, _, tdia, b = _systems(name, 16, np.float64)
     jres, tres = _solve_both(core, jacobi, jcsr, jdia, tdia, b, 1e-8)
     assert tres.status == int(jres.status)
     assert tres.iterations == int(jres.iterations)
-    jx = np.asarray(jres.x)
-    assert np.abs(tres.x.numpy() - jx).max() <= 1e-10 * np.abs(jx).max()
+    jx, tx = np.asarray(jres.x), tres.x.numpy()
+    if core == "bicgstab":
+        dense = np.asarray(jcsr.to_dense())
+        inv_norm = 1.0 / np.linalg.svd(dense, compute_uv=False)[-1]
+        bound = inv_norm * (np.linalg.norm(b - dense @ tx) + np.linalg.norm(b - dense @ jx))
+    else:
+        bound = 1e-10 * np.abs(jx).max()
+    assert np.abs(tx - jx).max() <= bound
     # near eps the residual moves by ||A|| * |dx|: compare it to 0.1 eps
     assert abs(float(tres.residual_norm) - float(jres.residual_norm)) <= 1e-9
     assert tres.floor_hit == bool(jres.floor_hit)
