@@ -78,7 +78,17 @@ trace must name K2), the command line (``python -m
 sparse_matrix_math_tpu_torch info / solve / bench-spmv --routed``) on a
 ``.mtx`` written in the run, and the six ``examples/torch_*.py`` at their
 default sizes.  Phase C solves a small system and compares
-the solution with scipy's direct solve.
+the solution with scipy's direct solve.  Phase X drives the distributed
+layer (``parallel/``) in a world of one rank over NCCL at the same sizes:
+``dist_solve`` on ``poisson_2d(1414)`` in halo mode (CG in f32 and f64,
+BiCGStab + distributed SGS(4) in f64), ``dist_dia_solve`` (CG f32, f64),
+``dist_stencil_solve`` (CG f64) and ``dist_wsell_solve`` on the jittered
+system (CG f32, K7 in the shard: one launch per product, one shard product
+bit for bit its plain version), each held to the single-device solve of the
+same system (status, iterations, the host's float64 residual) with wall and
+device microseconds per iteration and collectives per iteration beside it;
+then ``examples/torch_distributed_solve.py`` under ``torch.distributed.run``
+and, as a CPU run, at ``--cpu 2``.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
@@ -2517,6 +2527,262 @@ def phase_c(smm, torch, dev):
                 f"{solver.__name__} poisson_2d(64) f64: max |x - x_direct| {err:.2e} < 1e-8")
 
 
+# iterations of the torch.profiler window that reads a solve's device time
+_WINDOW = 256
+
+
+def single_case(torch, ref, csr, b, groups):
+    """The single-device solve that the distributed solves of one system are
+    held against, read once: ``ref(m)`` solves with ``max_iterations=m``
+    (None: the phase's cap), timed once by the host clock, then a
+    ``_WINDOW``-iteration solve under torch.profiler."""
+    res, wall = timed_solve(torch, lambda: ref(None))
+    win, dev_us, dev_n = device_breakdown(torch, lambda: ref(_WINDOW), groups)
+    return {"res": res, "wall": wall, "window_its": max(win.iterations, 1),
+            "dev_us": dev_us, "dev_n": dev_n, "host64": host_residuals(csr, b, res.x)[0]}
+
+
+def dist_case(smm, torch, par, label, d, dist, single, csr, b, eps, band_of, groups, *,
+              repeat=False):
+    """One distributed solve at world size 1 against ``single`` (the
+    :func:`single_case` reading of the same system), through the public
+    entry point: ``dist(m)`` solves with ``max_iterations=m`` (None: the
+    phase's cap).  The full solve is timed once by the host clock and its
+    collectives counted, then a ``_WINDOW``-iteration solve is read under
+    torch.profiler.  Holds the status, the iterations within
+    ``band_of(the single-device iterations)``, an interval, and the host's
+    float64 true residual (at most 1.01 eps for a float64 SUCCESS; for
+    float32, at most twice the larger of eps and the single-device
+    solve's); with ``repeat``, a second full solve must return the same
+    iterations and x bit for bit.  One printed line; the readings."""
+    import numpy as np
+
+    M = par.mesh
+    M.reset_collective_counts()
+    res, wall = timed_solve(torch, lambda: dist(None))
+    coll = dict(M.collectives)
+    win, dev_us, dev_n = device_breakdown(torch, lambda: dist(_WINDOW), groups)
+    one, one_wall, ref_us, ref_n = single["res"], single["wall"], single["dev_us"], single["dev_n"]
+    x = par.collect(res.x, d)
+    require(x.shape == (csr.shape[0],) and bool(np.isfinite(x).all()),
+            f"{label}: x finite, shape {x.shape}", quiet=True)
+    true64, _ = host_residuals(csr, b, torch.from_numpy(x))
+    one64 = single["host64"]
+    its, w_its, o_its = res.iterations, max(win.iterations, 1), single["window_its"]
+    f64 = csr.dtype == torch.float64
+    per_it = {k: round(v / max(its, 1), 3) for k, v in coll.items()}
+    reading = {
+        "status": res.status_enum().name, "iterations": its, "floor_hit": res.floor_hit,
+        "single_status": one.status_enum().name, "single_iterations": one.iterations,
+        "host_f64_residual": true64, "single_host_f64_residual": one64,
+        "wall_s": wall, "single_wall_s": one_wall,
+        "wall_us_per_iteration": 1e6 * wall / max(its, 1),
+        "single_wall_us_per_iteration": 1e6 * one_wall / max(one.iterations, 1),
+        "device_us_per_iteration": sum(dev_us.values()) / w_its,
+        "single_device_us_per_iteration": sum(ref_us.values()) / o_its,
+        "device_us_by_kernel_per_iteration": {k: v / w_its for k, v in dev_us.items()},
+        "single_device_us_by_kernel_per_iteration": {k: v / o_its for k, v in ref_us.items()},
+        "kernels_per_iteration": dev_n / w_its, "single_kernels_per_iteration": ref_n / o_its,
+        "collectives": coll, "collectives_per_iteration": per_it,
+    }
+    print(f"{label}: {reading['status']} iterations={its} floor_hit={res.floor_hit} host f64 "
+          f"{true64:.6e} (single device: {reading['single_status']} {one.iterations}, "
+          f"{one64:.6e}); wall {reading['wall_us_per_iteration']:.1f} us/iteration (single "
+          f"{reading['single_wall_us_per_iteration']:.1f}); device "
+          f"{reading['device_us_per_iteration']:.1f} us/iteration in "
+          f"{reading['kernels_per_iteration']:.1f} kernels (single "
+          f"{reading['single_device_us_per_iteration']:.1f} in "
+          f"{reading['single_kernels_per_iteration']:.1f}); by kernel "
+          + ", ".join(f"{k} {v:.1f}"
+                      for k, v in reading["device_us_by_kernel_per_iteration"].items())
+          + f"; collectives per iteration {per_it}")
+    require(res.status == one.status and res.floor_hit == one.floor_hit,
+            f"{label}: status {reading['status']} (floor_hit {res.floor_hit}) as the single-device "
+            f"solve's {reading['single_status']} (floor_hit {one.floor_hit})")
+    lo, hi = band_of(one.iterations)
+    require(lo <= its <= hi,
+            f"{label}: {its} iterations in [{lo}, {hi}] (the single-device solve: "
+            f"{one.iterations})")
+    if f64 and res.success:
+        require(true64 <= 1.01 * eps, f"{label}: host f64 residual {true64:.4e} <= {eps} (+1%)")
+    elif not f64:
+        require(true64 <= 2 * max(eps, one64),
+                f"{label}: host f64 residual {true64:.4e} <= 2 x max(eps, single's {one64:.4e})")
+    if repeat:
+        again = dist(None)
+        require(again.iterations == its and bits_equal(torch, again.x, res.x),
+                f"{label}: a second solve on the same b repeats it ({again.iterations} "
+                f"iterations, x bit for bit)")
+    return reading
+
+
+def phase_x(smm, W, torch, dev, dia_solves, nx: int = 1414, m: int = 113):
+    """The distributed layer (``parallel/``) at world size 1 over NCCL, at the
+    single-device phases' sizes: ``dist_solve`` on the CSR (halo mode; CG in
+    f32 and f64, BiCGStab + distributed SGS(4) in f64), ``dist_dia_solve``
+    (CG f32, f64), ``dist_stencil_solve`` (CG f64), ``dist_wsell_solve`` (CG
+    f32 on the jittered system, K7 in the shard), each against the
+    single-device solve of the same system; then the distributed example
+    under ``torch.distributed.run`` and at ``--cpu 2``.  Returns the
+    readings and K7's launches in the W-SELL solve."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sparse_matrix_math_tpu_torch import parallel as par
+    from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
+
+    print("== phase X: the distributed layer at world size 1 over NCCL")
+    store = tempfile.mkdtemp(prefix="smm_store_")
+    t0 = time.perf_counter()
+    mesh = par.init_distributed(f"file://{store}/store", 1, 0, device=dev)
+    out = {}
+    try:
+        par.mesh.all_reduce(torch.zeros(1, device=dev), mesh)  # NCCL's set-up, untimed
+        torch.cuda.synchronize()
+        print(f"{mesh}; NCCL up in {time.perf_counter() - t0:.2f} s")
+        groups = [("nccl", ("nccl", "Nccl")), ("K7 sell_kernel", ("sell_kernel",)),
+                  ("K2 dia", ("dia_staged", "dia_padded")), ("K4 sweeps", ("window_kernel",)),
+                  ("row sum", ("segment_reduce",))]
+        p32 = smm.poisson_2d(nx, dtype=torch.float32, device=dev)
+        p64 = smm.poisson_2d(nx, dtype=torch.float64, device=dev)
+        b = {dt: a @ torch.ones(a.shape[0], dtype=dt, device=dev)
+             for dt, a in ((torch.float32, p32), (torch.float64, p64))}
+        t1 = time.perf_counter()
+        d32, d64 = par.distribute_csr(p32, mesh), par.distribute_csr(p64, mesh)
+        t2 = time.perf_counter()
+        sgs = smm.SGSPreconditioner.from_matrix(p64, method="jacobi", sweeps=4,
+                                                strict_layout="csr")
+        dsgs = par.distribute_preconditioner(sgs, d64)
+        t3 = time.perf_counter()
+        dd = {dt: par.distribute_dia(smm.dia_from_csr(a), mesh)
+              for dt, a in ((torch.float32, p32), (torch.float64, p64))}
+        ds = par.distribute_stencil(smm.try_grid_stencil_from_csr(p64), mesh)
+        t4 = time.perf_counter()
+        require(d32.mode == d64.mode == "halo" and d64.block_rows == -(-nx * nx // 8) * 8,
+                f"poisson_2d({nx}) distributes in halo mode, one block of "
+                f"{d64.block_rows:,} rows")
+        print(f"host builds: distribute_csr x2 {t2 - t1:.2f} s, SGS(4) + "
+              f"distribute_preconditioner {t3 - t2:.2f} s, distribute_dia x2 + "
+              f"distribute_stencil {t4 - t3:.2f} s")
+        f32 = dict(epsilon=1e-4, max_iterations=6000)
+        f64 = dict(epsilon=1e-8, max_iterations=20000)
+
+        def cap(kw, m):
+            return kw if m is None else dict(kw, max_iterations=m)
+
+        def plain(fn, a, bb, kw, **extra):
+            return lambda m: fn(a, bb, **cap(kw, m), **extra)
+
+        def band(frac):
+            """The single-device count widened by max(3, frac) on each side."""
+            def interval(its):
+                w = max(3, int(np.ceil(frac * its)))
+                return its - w, its + w
+            return interval
+
+        # CG within 1 in f64; the f32 solves end at their floor, where the
+        # products' rounding moves the exit: max(3, 10%), as f32 BiCGStab
+        cg_band = {torch.float64: lambda its: (its - 1, its + 1), torch.float32: band(0.1)}
+
+        cg = {dt: single_case(torch, plain(smm.cg, a, b[dt], kw), a, b[dt], groups)
+              for dt, a, kw in ((torch.float32, p32, f32), (torch.float64, p64, f64))}
+        cases = []
+        for dt, kw, dcsr in ((torch.float32, f32, d32), (torch.float64, f64, d64)):
+            bb = b[dt]
+            name = "f32" if dt == torch.float32 else "f64"
+            cases.append((f"dist_solve cg poisson_2d({nx}) {name}", dcsr,
+                          plain(par.dist_solve, dcsr, bb, kw), dt, kw))
+            cases.append((f"dist_dia_solve cg poisson_2d({nx}) {name}", dd[dt],
+                          plain(par.dist_dia_solve, dd[dt], bb, kw), dt, kw))
+        cases.append((f"dist_stencil_solve cg poisson_2d({nx}) f64", ds,
+                      plain(par.dist_stencil_solve, ds, b[torch.float64], f64), torch.float64,
+                      f64))
+        for label, d, dist, dt, kw in cases:
+            out[label] = dist_case(smm, torch, par, label, d, dist, cg[dt],
+                                   p32 if dt == torch.float32 else p64, b[dt], kw["epsilon"],
+                                   cg_band[dt], groups)
+        # BiCGStab + SGS(4): max(3, 5%) around the single-device count.  Its
+        # count moves with any change of rounding (the products' summation
+        # order, b's last bit: tools/dist_probe.py), so the distributed
+        # solve must repeat itself on the same b, bit for bit.
+        label = f"dist_solve bicgstab+sgs(4) poisson_2d({nx}) f64"
+        b64 = b[torch.float64]
+        out[label] = dist_case(
+            smm, torch, par, label, d64,
+            plain(par.dist_solve, d64, b64, f64, solver="bicgstab", preconditioner=dsgs),
+            single_case(torch, plain(smm.bicgstab, p64, b64, f64, preconditioner=sgs), p64, b64,
+                        groups),
+            p64, b64, 1e-8, band(0.05), groups, repeat=True)
+        for name in ("f32", "f64"):
+            single = f"cg poisson_2d({nx}) {name}"
+            print(f"  phase B's {single}: {dia_solves[single][0]} iterations; this phase's "
+                  f"single-device solve {out['dist_solve ' + single]['single_iterations']}")
+        del d32, d64, dsgs, sgs, dd, ds, p32, p64, b, cg
+
+        # W-SELL: K7 in the shard, on phase W's system and right-hand side
+        t5 = time.perf_counter()
+        g32 = smm.laplace_3d_jittered(m, symmetric=True, shift=0.25, dtype=torch.float32,
+                                      device=dev)
+        w32 = smm.auto_route_for_solve(g32)
+        ab = w32 @ torch.ones(g32.shape[1], dtype=torch.float32, device=dev)
+        bw = ab / torch.linalg.norm(ab)
+        t6 = time.perf_counter()
+        require(isinstance(w32, smm.WSellMatrix), "the single-device solve routes to W-SELL",
+                quiet=True)
+        dw = par.distribute_wsell(g32, mesh)
+        t7 = time.perf_counter()
+        print(f"laplace_3d_jittered({m}) f32: single-device route {t6 - t5:.2f} s; "
+              f"distribute_wsell {t7 - t6:.2f} s: block {dw.block_rows}, window matrix "
+              f"{dw.local.shape}, nway {dw.nway}, slot_ratio {dw.slot_ratio:.3f} (single "
+              f"device {w32.slot_ratio:.3f})")
+        xl = torch.as_tensor(np.random.default_rng(1).standard_normal(dw.block_rows),
+                             device=dev).to(torch.float32)
+        y = par.dist_wsell_spmv(dw, xl)
+        torch.cuda.synchronize()
+        require(bits_equal(torch, y, S.sell_spmv_plain(dw.local.sell, torch.cat([xl, xl, xl]))),
+                "dist_wsell_spmv shard product (K7 over the [left | own | right] window) bit "
+                "for bit sell_spmv_plain on the same layout")
+        wkw = dict(epsilon=1e-4, max_iterations=600)
+        label = f"dist_wsell_solve cg jittered({m}) f32"
+        W.reset_launch_counts()
+        halos = par.mesh.collectives["halo"]
+        res, wall = timed_solve(torch, lambda: par.dist_wsell_solve(dw, bw, **wkw))
+        k7, matvecs = W.launches["wsell_spmv"], par.mesh.collectives["halo"] - halos
+        print(f"{label}: {res.status_enum().name} in {res.iterations} iterations, "
+              f"{wall:.3f} s; K7 launches {k7}, products (halo exchanges) {matvecs}")
+        require(k7 == matvecs > res.iterations,
+                f"{label}: K7 launched once per product ({k7} launches, {matvecs} products)")
+        out[label] = dist_case(smm, torch, par, label, dw,
+                               plain(par.dist_wsell_solve, dw, bw, wkw),
+                               single_case(torch, plain(smm.cg, g32, bw, wkw), g32, bw, groups),
+                               g32, bw, 1e-4, band(0.1), groups)
+        out[label]["k7_launches"] = k7
+        del dw, g32, w32
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # the example, as a user runs it: one process per card, and two CPU ranks
+    example = os.path.join(_ROOT, "examples", "torch_distributed_solve.py")
+    for tag, cmd in (("torchrun --nproc_per_node=1 (NCCL, the card)",
+                      [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc_per_node=1", example]),
+                     ("--cpu 2 (CPU run: two gloo ranks)", [sys.executable, example, "--cpu",
+                                                           "2"])):
+        t8 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=_ROOT)
+        for line in run.stdout.splitlines():
+            print(f"  torch_distributed_solve {tag}: {line}")
+        want = "backend=nccl" if "nccl" in tag.lower() else "backend=gloo"
+        require(run.returncode == 0 and want in run.stdout
+                and "SolveResult(status=SUCCESS" in run.stdout,
+                f"torch_distributed_solve {tag}: SUCCESS in {time.perf_counter() - t8:.1f} s"
+                + ("" if run.returncode == 0 else f"\n{run.stderr[-3000:]}"))
+    return out, out[f"dist_wsell_solve cg jittered({m}) f32"]["k7_launches"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(_ROOT, "sparse_matrix_math_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding sparse_matrix_math_tpu_torch/",
@@ -2580,6 +2846,10 @@ def main() -> int:
     ulaunch = ustats["launches"]
     print("PHASE_U " + json.dumps({k: v for k, v in ustats.items() if k != "launches"}))
     phase_c(smm, torch, dev)
+    from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+
+    xstats, x_k7 = phase_x(smm, W, torch, dev, dia_solves)
+    print("PHASE_X " + json.dumps(xstats))
 
     def entry(name, source, replaces, launches, st, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
@@ -2658,12 +2928,14 @@ def main() -> int:
               phase_u_spmv_throughput=ustats["throughput"]["ell"],
               layout=layout(wstats["ell_spmv"])),
         # K7: launches are phase W's and phase G's measured runs' (the ILU0
-        # factors' strict products under GMRES)
+        # factors' strict products under GMRES), and phase X's distributed
+        # W-SELL solve's (every shard product)
         entry("sell_kernel for wsell_kernel k=1 (wsell_spmv)", _SELL_SOURCE,
               f"{_WSELL_PALLAS}:89",
-              wcounts["wsell_spmv"] + glaunch["wsell_spmv"] + ulaunch["wsell_spmv"],
+              wcounts["wsell_spmv"] + glaunch["wsell_spmv"] + ulaunch["wsell_spmv"] + x_k7,
               wstats["wsell_spmv"], phase_w_launches=wcounts["wsell_spmv"],
               phase_g_launches=glaunch["wsell_spmv"], phase_u_launches=ulaunch["wsell_spmv"],
+              phase_x_launches=x_k7,
               phase_u_spmv_throughput=ustats["throughput"]["wsell"],
               also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
               layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],

@@ -95,13 +95,28 @@ def checkpointed_solve(
     boundaries, so convergence can take somewhat more total iterations
     than a single uninterrupted run).  If ``checkpoint_path`` exists the
     solve resumes from it, with its ``x`` put on ``b``'s device.
+
+    With a distributed operand (``parallel``'s, e.g. with
+    ``solver=functools.partial(dist_solve, solver="cg")``) every rank runs
+    this, through the operand's own ``gather_vector`` / ``scatter_vector`` /
+    ``write_once``: the file holds the global x in the JAX package's padded
+    layout, rank 0 alone writes it, and every rank resumes from the same
+    file.  ``max_iterations=-1`` means the matrix's n.
     """
-    n = b.shape[0]
+    if hasattr(a, "gather_vector"):
+        n, to_host, to_device, write_once = (
+            a.shape[0], a.gather_vector, a.scatter_vector, a.write_once)
+    else:
+        n, to_host, write_once = b.shape[0], _host, (lambda write: write())
+
+        def to_device(x_host):
+            return torch.from_numpy(x_host).to(b.device)
+
     total_cap = int(n) if max_iterations in (-1, None) else int(max_iterations)
 
     ckpt = load_checkpoint(checkpoint_path)
     if ckpt is not None:
-        x = torch.from_numpy(ckpt.x).to(b.device)
+        x = to_device(ckpt.x)
         done = ckpt.iterations_done
         if ckpt.residual_norm <= epsilon:
             # The checkpointed run already converged — report it as such
@@ -127,14 +142,9 @@ def checkpointed_solve(
         )
         done += int(res.iterations)
         x = res.x
-        save_checkpoint(
-            checkpoint_path,
-            SolverCheckpoint(
-                x=_host(x),
-                iterations_done=done,
-                residual_norm=float(res.residual_norm),
-            ),
-        )
+        snapshot = SolverCheckpoint(x=to_host(x), iterations_done=done,
+                                    residual_norm=float(res.residual_norm))
+        write_once(lambda: save_checkpoint(checkpoint_path, snapshot))
         if int(res.status) != SolverStatus.MAX_ITERATIONS_REACHED:
             break
     if res is None:  # checkpoint already past the cap

@@ -858,3 +858,109 @@ def test_multigrid_matches_cpu(cuda_device):
     cpu, gpu = res["cpu"], res[str(cuda_device)]
     assert gpu.status == cpu.status == smm.SolverStatus.SUCCESS
     assert abs(gpu.iterations - cpu.iterations) <= 1
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A world of one rank on the card over NCCL (the group this machine
+    can hold: NCCL refuses two ranks on one card)."""
+    from sparse_matrix_math_tpu_torch import parallel
+
+    mesh = parallel.init_distributed(f"file://{tmp_path / 'store'}", 1, 0,
+                                     device=cuda_device)
+    try:
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _dist_jittered(mesh, dtype):
+    from sparse_matrix_math_tpu_torch import parallel
+
+    csr = smm.laplace_3d_jittered(16, jitter=4, symmetric=True, dtype=dtype, device="cpu")
+    return csr, parallel.distribute_wsell(csr, mesh)
+
+
+def test_halo_self_copy(nccl_mesh):
+    """At world size 1 both neighbour blocks are the rank's own block, with
+    no wire traffic (a ppermute to self)."""
+    from sparse_matrix_math_tpu_torch.parallel import mesh as M
+
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(4096), device=nccl_mesh.device)
+    wire = M.collectives["halo_wire"]
+    left, right = M.halo_exchange(x, nccl_mesh)
+    assert bits_equal(left, x) and bits_equal(right, x)
+    assert M.collectives["halo_wire"] == wire
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_dist_wsell_shard_is_k7(nccl_mesh, dtype):
+    """One dist_wsell_spmv shard product on the card is one K7 launch, bit
+    for bit the plain version over the same window layout."""
+    from sparse_matrix_math_tpu_torch import parallel
+
+    csr, d = _dist_jittered(nccl_mesh, dtype)
+    assert d.local.vals.device.type == "cuda" and d.local.shape == (4096, 3 * 4096)
+    x = np.random.default_rng(0).standard_normal(csr.shape[0])
+    xl = parallel.distribute_vector(x, d).to(dtype)
+    before = W.launches["wsell_spmv"]
+    y = parallel.dist_wsell_spmv(d, xl)
+    torch.cuda.synchronize()
+    assert W.launches["wsell_spmv"] == before + 1
+    window = torch.cat([xl, xl, xl])
+    assert bits_equal(y, S.sell_spmv_plain(d.local.sell, window))
+
+
+def test_dist_csr_solve_repeats(nccl_mesh):
+    """A distributed CSR solve on the card repeats itself on the same b:
+    BiCGStab + distributed SGS(4) in f64, whose count moves with any change
+    of rounding, gives the same iterations and x bit for bit twice."""
+    from sparse_matrix_math_tpu_torch import parallel as par
+
+    csr = smm.poisson_2d(64, dtype=torch.float64, device="cpu")
+    d = par.distribute_csr(csr, nccl_mesh)
+    pre = par.distribute_preconditioner(
+        smm.SGSPreconditioner.from_matrix(csr, method="jacobi", sweeps=4,
+                                          strict_layout="csr"), d)
+    b = np.random.default_rng(7).standard_normal(csr.shape[0])
+    first, again = (par.dist_solve(d, b, solver="bicgstab", preconditioner=pre, epsilon=1e-9)
+                    for _ in range(2))
+    assert first.status == smm.SolverStatus.SUCCESS
+    assert again.iterations == first.iterations and bits_equal(again.x, first.x)
+
+
+@pytest.mark.parametrize("kind", ["csr", "dia", "stencil", "wsell"])
+def test_dist_solves_on_card(nccl_mesh, kind):
+    """f64 CG through each distributed entry point at world size 1 on the
+    card against the single-device CG on the card: the same status,
+    iterations within 1, x within 1e-8; the W-SELL solve launches K7 once
+    per product (one halo exchange each)."""
+    from sparse_matrix_math_tpu_torch import parallel as par
+    from sparse_matrix_math_tpu_torch.parallel import mesh as M
+
+    dev = nccl_mesh.device
+    if kind == "wsell":
+        csr, d = _dist_jittered(nccl_mesh, torch.float64)
+        card = smm.laplace_3d_jittered(16, jitter=4, symmetric=True, dtype=torch.float64,
+                                       device=dev)
+    else:
+        csr = smm.poisson_2d(64, dtype=torch.float64, device="cpu")
+        card = smm.poisson_2d(64, dtype=torch.float64, device=dev)
+        d = {"csr": lambda: par.distribute_csr(csr, nccl_mesh),
+             "dia": lambda: par.distribute_dia(smm.dia_from_csr(csr), nccl_mesh),
+             "stencil": lambda: par.distribute_stencil(smm.try_grid_stencil_from_csr(csr),
+                                                       nccl_mesh)}[kind]()
+    solve = {"csr": par.dist_solve, "dia": par.dist_dia_solve,
+             "stencil": par.dist_stencil_solve, "wsell": par.dist_wsell_solve}[kind]
+    b = np.random.default_rng(6).standard_normal(csr.shape[0])
+    k7, halos = W.launches["wsell_spmv"], M.collectives["halo"]
+    res = solve(d, b, epsilon=1e-9)
+    k7, halos = W.launches["wsell_spmv"] - k7, M.collectives["halo"] - halos
+    one = smm.cg(card, torch.as_tensor(b, device=dev), epsilon=1e-9)
+    assert res.x.device == dev
+    assert res.status == one.status == smm.SolverStatus.SUCCESS
+    assert abs(res.iterations - one.iterations) <= 1
+    x = par.collect(res.x, d)
+    assert np.abs(x - one.x.cpu().numpy()).max() <= 1e-8 * np.abs(x).max()
+    if kind == "wsell":
+        assert k7 == halos >= res.iterations + 2

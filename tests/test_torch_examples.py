@@ -85,6 +85,18 @@ def test_cpu_switch_from_the_command_line():
     assert "PCG+IC0: SolveResult(status=SUCCESS" in out.stdout
 
 
+def test_distributed_solve_example():
+    """Two gloo CPU ranks (``--cpu 2``), as a user runs the script: the
+    spawned ranks import the script's own ``run``."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, os.path.join(EXAMPLES, "torch_distributed_solve.py"),
+                          "--cpu", "2"], capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "size=2" in out.stdout and "exchange mode: halo" in out.stdout
+    assert "SolveResult(status=SUCCESS" in out.stdout
+    assert _value(out.stdout, "max|x-1| =") < 1e-3
+
+
 def test_examples_import_no_jax():
     """Loading every port example leaves jax and the JAX package out of
     sys.modules."""
