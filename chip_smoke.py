@@ -1726,10 +1726,11 @@ def timed_solve(torch, solve):
     return res, time.perf_counter() - t0
 
 
-def device_breakdown(torch, solve, groups):
+def device_breakdown(torch, solve, groups, by_count=None):
     """Device µs of one run of ``solve`` under torch.profiler, summed by the
     first group (name, substrings) whose substring a kernel's name holds,
-    the rest under "other"; and the kernel launches."""
+    the rest under "other"; and the kernel launches (``by_count``, when
+    given, receives them by group)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1745,6 +1746,11 @@ def device_breakdown(torch, solve, groups):
         key = next((name for name, subs in groups if any(s in ev.key for s in subs)), "other")
         out[key] += ev.self_device_time_total
         launches += ev.count
+        if by_count is not None:
+            by_count[key] = by_count.get(key, 0) + ev.count
+    if by_count is not None:
+        for name in out:
+            by_count.setdefault(name, 0)
     return res, out, launches
 
 
@@ -2561,7 +2567,8 @@ def dist_case(smm, torch, par, label, d, dist, single, csr, b, eps, band_of, gro
     M.reset_collective_counts()
     res, wall = timed_solve(torch, lambda: dist(None))
     coll = dict(M.collectives)
-    win, dev_us, dev_n = device_breakdown(torch, lambda: dist(_WINDOW), groups)
+    by_count = {}
+    win, dev_us, dev_n = device_breakdown(torch, lambda: dist(_WINDOW), groups, by_count)
     one, one_wall, ref_us, ref_n = single["res"], single["wall"], single["dev_us"], single["dev_n"]
     x = par.collect(res.x, d)
     require(x.shape == (csr.shape[0],) and bool(np.isfinite(x).all()),
@@ -2584,6 +2591,7 @@ def dist_case(smm, torch, par, label, d, dist, single, csr, b, eps, band_of, gro
         "single_device_us_by_kernel_per_iteration": {k: v / o_its for k, v in ref_us.items()},
         "kernels_per_iteration": dev_n / w_its, "single_kernels_per_iteration": ref_n / o_its,
         "collectives": coll, "collectives_per_iteration": per_it,
+        "window_iterations": w_its, "window_launches": by_count,
     }
     print(f"{label}: {reading['status']} iterations={its} floor_hit={res.floor_hit} host f64 "
           f"{true64:.6e} (single device: {reading['single_status']} {one.iterations}, "
@@ -2616,15 +2624,172 @@ def dist_case(smm, torch, par, label, d, dist, single, csr, b, eps, band_of, gro
     return reading
 
 
-def phase_x(smm, W, torch, dev, dia_solves, nx: int = 1414, m: int = 113):
+def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_000_000,
+                    nx: int = 1414, m3: int = 243):
+    """Phase X's solves of the last three distributed modules, each held
+    against the single-device solve of the same system: ``dist_routed_solve``
+    (BiCGStab f32 on phase R's system, b = A·ones, eps 1e-4; K11 per pass and
+    K7 last in the shard), ``dist_cg_ir_df64`` (phase D's ``poisson_2d(nx)``
+    to 1e-10) and ``dist_mg_solve`` (PCG f32 with the distributed V-cycle on
+    phase G's ``poisson_3d(m3)``).  ``routed`` is phase R's single-device
+    chain of the system (None: built here).  Returns the readings and the
+    K11 and K7 launches of the routed solve."""
+    import numpy as np
+
+    from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
+    from sparse_matrix_math_tpu_torch.ops import stream_gather as R
+
+    out = {}
+    t_start = time.perf_counter()
+    # -- dist_rsell: the routed chain in the shard (K11 per pass, K7 last) ------
+    t0 = time.perf_counter()
+    u32 = smm.uniform_random_csr(n_r, per_row=5, dtype=torch.float32, device=dev)
+    ones = torch.ones(n_r, dtype=torch.float32, device=dev)
+    bu = u32 @ ones
+    if routed is None:
+        routed = smm.routed_from_csr(u32, max_slot_ratio=16.0)
+    t1 = time.perf_counter()
+    du = par.distribute_routed(u32, mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    loc = du.local
+    print(f"uniform_random_csr({n_r}, per_row=5) f32: distribute_routed on the host in "
+          f"{t2 - t1:.1f} s: block {du.block_rows}, {du.n_passes} passes of "
+          f"{[p.n_vregs for p in loc.passes]} vregs, final {loc.final.n_vregs} vregs nway "
+          f"{du.final_nway}, slot_ratio {du.slot_ratio:.3f} (single device: "
+          f"{len(routed.passes)} passes of {[p.n_vregs for p in routed.passes]} vregs, final "
+          f"{routed.final.n_vregs} nway {routed.final.nway}, {routed.slot_ratio:.3f})")
+    xl = torch.as_tensor(np.random.default_rng(2).standard_normal(du.block_rows),
+                         device=dev).to(torch.float32)
+    R.reset_launch_counts()
+    W.reset_launch_counts()
+    y = par.dist_routed_spmv(du, xl)
+    torch.cuda.synchronize()
+    require(R.launches["stream_gather"] == du.n_passes and W.launches["wsell_spmv"] == 1,
+            f"dist_routed_spmv: {R.launches['stream_gather']} K11 launches (one per pass) and "
+            f"{W.launches['wsell_spmv']} K7 launch")
+    t = xl  # the all-gathered x of a world of one rank
+    for p in loc.passes:
+        t = R.stream_gather_plain(p.base, p.meta, p.vals, t, x_rows=p.x_rows,
+                                  window_f=p.window_f)
+    require(bits_equal(torch, y, S.sell_spmv_plain(loc.final.sell, t)),
+            "dist_routed_spmv shard product (the all-gather, K11 per pass, K7) bit for bit "
+            "the chain's plain versions (stream_gather_plain, sell_spmv_plain)")
+    kw = dict(epsilon=1e-4, max_iterations=2000)
+    label = f"dist_routed_solve bicgstab uniform_random({n_r}) f32"
+    R.reset_launch_counts()
+    W.reset_launch_counts()
+    gathers = par.mesh.collectives["all_gather"]
+    res, wall = timed_solve(torch, lambda: par.dist_routed_solve(du, bu, solver="bicgstab",
+                                                                   **kw))
+    products = par.mesh.collectives["all_gather"] - gathers
+    k11, k7 = R.launches["stream_gather"], W.launches["wsell_spmv"]
+    print(f"{label}: {res.status_enum().name} in {res.iterations} iterations, {wall:.3f} s; "
+          f"K11 launches {k11}, K7 {k7}, products (all-gathers) {products}")
+    require(k7 == products > res.iterations and k11 == du.n_passes * products,
+            f"{label}: {du.n_passes + 1} launches per product ({k11} K11 = {du.n_passes} x "
+            f"{products} products, {k7} K7)")
+
+    def band(frac, least):
+        def interval(its):
+            w = max(least, int(np.ceil(frac * its)))
+            return its - w, its + w
+        return interval
+
+    # the f32 solve ends at its precision floor (||r|| ~6e-4 > eps): the exit
+    # after the verified restarts moves with the summation order, as phase R's
+    # f32 front-door solves do: max(4, 25%)
+    single = single_case(torch, lambda m: smm.bicgstab(routed, bu, **(
+        kw if m is None else dict(kw, max_iterations=m))), u32, bu, groups)
+    out[label] = dist_case(smm, torch, par, label, du, lambda m: par.dist_routed_solve(
+        du, bu, solver="bicgstab", **(kw if m is None else dict(kw, max_iterations=m))),
+        single, u32, bu, 1e-4, band(0.25, 4), groups)
+    wl = out[label]["window_launches"]
+    require(wl["K11 stream_gather"] == du.n_passes * wl["K7 sell_kernel"] > 0,
+            f"{label}: torch.profiler sees {wl['K11 stream_gather']} K11 and "
+            f"{wl['K7 sell_kernel']} K7 launches in the window, {du.n_passes} + 1 per product")
+    out[label].update(k11_launches=k11, k7_launches=k7, products=products,
+                      passes=du.n_passes, slot_ratio=du.slot_ratio,
+                      single_slot_ratio=routed.slot_ratio, build_s=t2 - t1)
+    launches = {"stream_gather": k11, "wsell_spmv": k7}
+    del du, u32, bu, ones, routed, y, t, xl
+    torch.cuda.empty_cache()
+
+    # -- dist_df64: the refinement to 1e-10 on phase D's system -------------------
+    p64 = smm.poisson_2d(nx, device=dev)
+    data, indices, indptr = host_csr_arrays(p64)
+    dfa = smm.df_operator_from_host_csr(data, indices, indptr, p64.shape, device=dev)
+    b64 = np.add.reduceat(data, indptr[:-1])  # A @ ones in float64
+    ddf = par.distribute_df_dia(dfa, mesh)
+    fkw = dict(epsilon=1e-10, max_iterations=30000)
+    label = f"dist_cg_ir_df64 poisson_2d({nx}) eps 1e-10"
+    reading = {}
+    for name, solve in (("single", lambda: smm.cg_ir_df64(dfa, b64, **fkw)),
+                        ("dist", lambda: par.dist_cg_ir_df64(ddf, b64, **fkw))):
+        par.mesh.reset_collective_counts()
+        r, w = timed_solve(torch, solve)
+        x = r.x_f64()
+        true64 = float(np.linalg.norm(b64 - np.add.reduceat(data * x[indices], indptr[:-1])))
+        reading[name] = {"status": r.status_enum().name, "rounds": r.outer_rounds,
+                         "inner_iterations": r.iterations, "host_f64_residual": true64,
+                         "wall_s": w, "wall_us_per_inner_iteration": 1e6 * w / max(r.iterations, 1),
+                         "collectives": dict(par.mesh.collectives)}
+        print(f"{label} {name}: {r!r} in {r.outer_rounds} rounds, host f64 {true64:.6e}; wall "
+              f"{w:.3f} s, {reading[name]['wall_us_per_inner_iteration']:.1f} us per inner "
+              f"iteration; collectives {reading[name]['collectives']}")
+        require(x.shape == (nx * nx,) and bool(np.isfinite(x).all()), f"{label} {name}: x finite",
+                quiet=True)
+    one, got = reading["single"], reading["dist"]
+    lo, hi = band(0.10, 3)(one["inner_iterations"])
+    require(got["status"] == one["status"] and abs(got["rounds"] - one["rounds"]) <= 1
+            and lo <= got["inner_iterations"] <= hi,
+            f"{label}: {got['status']} in {got['rounds']} rounds, {got['inner_iterations']} inner "
+            f"iterations, as the single-device {one['status']} in {one['rounds']} rounds (within "
+            f"1), {one['inner_iterations']} (within [{lo}, {hi}])")
+    if got["status"] == "SUCCESS":
+        require(got["host_f64_residual"] <= 1.01e-10,
+                f"{label}: host f64 residual {got['host_f64_residual']:.4e} <= 1e-10 (+1%)")
+    out[label] = reading
+    del p64, dfa, ddf, data, indices, indptr, b64
+    torch.cuda.empty_cache()
+
+    # -- dist_multigrid: PCG with the distributed V-cycle on phase G's 3-D system -
+    p3 = smm.poisson_3d(m3, dtype=torch.float32, device=dev)
+    b3 = p3 @ torch.ones(p3.shape[0], dtype=torch.float32, device=dev)
+    mg = smm.PoissonMultigrid.for_grid(m3, m3, m3, device=dev)
+    t3 = time.perf_counter()
+    dmg = par.distribute_multigrid(mg, mesh)
+    torch.cuda.synchronize()
+    eps3 = 1e-4 * float(torch.linalg.norm(b3))  # above the f32 floor at 14M rows
+    mkw = dict(epsilon=eps3, max_iterations=200)
+    label = f"dist_mg_solve pcg poisson_3d({m3}) f32 eps 1e-4 ||b||"
+    print(f"{label}: distribute_multigrid {time.perf_counter() - t3:.2f} s, "
+          f"{dmg.n_levels_dist} distributed levels of {len(mg.dims)}, m0s {dmg.m0s}")
+    single = single_case(torch, lambda m: smm.cg(p3, b3, preconditioner=mg, **(
+        mkw if m is None else dict(mkw, max_iterations=m))), p3, b3, groups)
+    out[label] = dist_case(smm, torch, par, label, dmg, lambda m: par.dist_mg_solve(
+        dmg, b3, solver="pcg", **(mkw if m is None else dict(mkw, max_iterations=m))),
+        single, p3, b3, eps3, band(0.0, 1), groups)
+    out[label]["same_iterations"] = out[label]["iterations"] == out[label]["single_iterations"]
+    del p3, b3, mg, dmg
+    torch.cuda.empty_cache()
+    print(f"phase X's dist_rsell, dist_df64 and dist_multigrid solves took "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return out, launches
+
+
+def phase_x(smm, W, torch, dev, dia_solves, routed=None, nx: int = 1414, m: int = 113):
     """The distributed layer (``parallel/``) at world size 1 over NCCL, at the
     single-device phases' sizes: ``dist_solve`` on the CSR (halo mode; CG in
     f32 and f64, BiCGStab + distributed SGS(4) in f64), ``dist_dia_solve``
     (CG f32, f64), ``dist_stencil_solve`` (CG f64), ``dist_wsell_solve`` (CG
-    f32 on the jittered system, K7 in the shard), each against the
+    f32 on the jittered system, K7 in the shard), then
+    :func:`phase_x_modules` (``dist_routed_solve``, ``dist_cg_ir_df64``,
+    ``dist_mg_solve``; ``routed`` is phase R's chain), each against the
     single-device solve of the same system; then the distributed example
     under ``torch.distributed.run`` and at ``--cpu 2``.  Returns the
-    readings and K7's launches in the W-SELL solve."""
+    readings and the launches of K7 (the W-SELL and routed solves) and K11
+    (the routed solve)."""
     import shutil
     import tempfile
 
@@ -2760,6 +2925,12 @@ def phase_x(smm, W, torch, dev, dia_solves, nx: int = 1414, m: int = 113):
                                g32, bw, 1e-4, band(0.1), groups)
         out[label]["k7_launches"] = k7
         del dw, g32, w32
+        torch.cuda.empty_cache()
+        more, launches = phase_x_modules(
+            smm, W, torch, par, mesh, dev,
+            groups + [("K11 stream_gather", ("stream_gather",))], routed, nx=nx)
+        out.update(more)
+        launches["wsell_spmv"] += k7
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -2780,7 +2951,7 @@ def phase_x(smm, W, torch, dev, dia_solves, nx: int = 1414, m: int = 113):
                 and "SolveResult(status=SUCCESS" in run.stdout,
                 f"torch_distributed_solve {tag}: SUCCESS in {time.perf_counter() - t8:.1f} s"
                 + ("" if run.returncode == 0 else f"\n{run.stderr[-3000:]}"))
-    return out, out[f"dist_wsell_solve cg jittered({m}) f32"]["k7_launches"]
+    return out, launches
 
 
 def main() -> int:
@@ -2842,13 +3013,15 @@ def main() -> int:
                "wsell": ("phase W's K7 at laplace_3d_jittered(113), events",
                          wstats["wsell_spmv"]["ms"]),
                "routed": ("phase R's chain, events", rstats["chain_ms"])}
-    ustats = phase_u(smm, K, torch, dev, earlier, rstats.pop("routed_f32"), cg_f64_its)
+    routed = rstats.pop("routed_f32")
+    ustats = phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its)
     ulaunch = ustats["launches"]
     print("PHASE_U " + json.dumps({k: v for k, v in ustats.items() if k != "launches"}))
     phase_c(smm, torch, dev)
     from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 
-    xstats, x_k7 = phase_x(smm, W, torch, dev, dia_solves)
+    xstats, xlaunch = phase_x(smm, W, torch, dev, dia_solves, routed)
+    del routed
     print("PHASE_X " + json.dumps(xstats))
 
     def entry(name, source, replaces, launches, st, **extra):
@@ -2929,13 +3102,14 @@ def main() -> int:
               layout=layout(wstats["ell_spmv"])),
         # K7: launches are phase W's and phase G's measured runs' (the ILU0
         # factors' strict products under GMRES), and phase X's distributed
-        # W-SELL solve's (every shard product)
+        # W-SELL and routed solves' (every shard product)
         entry("sell_kernel for wsell_kernel k=1 (wsell_spmv)", _SELL_SOURCE,
               f"{_WSELL_PALLAS}:89",
-              wcounts["wsell_spmv"] + glaunch["wsell_spmv"] + ulaunch["wsell_spmv"] + x_k7,
+              wcounts["wsell_spmv"] + glaunch["wsell_spmv"] + ulaunch["wsell_spmv"]
+              + xlaunch["wsell_spmv"],
               wstats["wsell_spmv"], phase_w_launches=wcounts["wsell_spmv"],
               phase_g_launches=glaunch["wsell_spmv"], phase_u_launches=ulaunch["wsell_spmv"],
-              phase_x_launches=x_k7,
+              phase_x_launches=xlaunch["wsell_spmv"],
               phase_u_spmv_throughput=ustats["throughput"]["wsell"],
               also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
               layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],
@@ -2962,10 +3136,12 @@ def main() -> int:
         # ms, plain_ms and bound_ms are of the chain's largest routing pass;
         # no PyTorch call computes one pass, so library_ms is the CSR product
         # that the whole chain (every pass, then K7) computes; launches sums
-        # the front-door solves that launches_per_solve lists one by one
+        # the front-door solves that launches_per_solve lists one by one,
+        # phase U's and phase X's distributed routed solve's
         entry("stream_gather_kernel (stream_gather)", _STREAM_SOURCE, f"{_RSELL_PALLAS}:32",
-              rcounts["stream_gather"] + ulaunch["stream_gather"], rstats,
-              phase_u_launches=ulaunch["stream_gather"],
+              rcounts["stream_gather"] + ulaunch["stream_gather"] + xlaunch["stream_gather"],
+              rstats, phase_u_launches=ulaunch["stream_gather"],
+              phase_x_launches=xlaunch["stream_gather"],
               phase_u_spmv_throughput=ustats["throughput"]["routed"],
               also_replaces=f"{_RSELL_PALLAS}:47",
               entry=f"{_RSELL_PALLAS}:89", library_of="the whole chain",

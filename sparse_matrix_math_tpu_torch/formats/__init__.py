@@ -59,7 +59,7 @@ def best_format(csr, *, max_slot_ratio: float = 8.0, allow_reorder: bool = True)
 #
 # Port of sparse_matrix_math_tpu/formats/__init__.py:89-154.  A large CSR
 # matrix on the card would run every solver iteration through the gather and
-# index_add_ path, so the solver front doors (formats/reorder.py) route it
+# row-sum path, so the solver front doors (formats/reorder.py) route it
 # to DIA, W-SELL or RCM+W-SELL first.  Routing is active for matrices on a
 # CUDA device, the counterpart of the JAX package's TPU backend check.
 # SMM_NO_AUTOROUTE=1 turns it off; SMM_FORCE_AUTOROUTE=1 turns it on for
@@ -122,7 +122,7 @@ def auto_route_for_solve(a, *, has_preconditioner: bool = False):
                if has_preconditioner else "")
         warnings.warn(
             f"solving a {a.shape[0]}x{a.shape[1]} CSR matrix ({a.nnz} nnz) "
-            "through the gather/index_add path, far slower than the sparse "
+            "through the gather/row-sum path, far slower than the sparse "
             f"kernels: {', '.join(tried)} refused this pattern{why}.  Consider "
             "best_format(a) or solve(..., auto_format=True), which may build "
             "the routed R-SELL chain.",

@@ -3,8 +3,9 @@
 Port of ``sparse_matrix_math_tpu/formats/csr.py``.  The reference's
 three arrays (``values``, ``positions``, ``start``;
 include/sparse_matrix_math.h:1243-1255) are ``data``, ``indices`` and
-``indptr`` here, plus ``row_ids``, the row of every stored value, so the
-product is one gather and one ``index_add_`` with no ragged loop.  The
+``indptr`` here, plus ``row_ids``, the row of every stored value.  The
+product is one gather and one sum by row over ``indptr`` in the entries'
+order (ops/spmv.py:row_sum), with no ragged loop.  The
 reference's mutating element and matrix operations (``updateEntry``,
 ``addEntry``, ``zeroValues``, ``operator*=``, ``inplaceAdd/Subtract``,
 h:1525-1604) return a new matrix sharing the index tensors.
@@ -29,7 +30,9 @@ class CSRMatrix:
 
     * ``data``    — (nnz,) stored values
     * ``indices`` — (nnz,) int64 column indices, ascending within a row
-    * ``indptr``  — (rows+1,) int64 row pointers
+    * ``indptr``  — (rows+1,) int64 row pointers: 0 first, non-decreasing,
+      nnz last (the product sums by it unchecked; the constructors here make
+      it so, and ``interop.csr_from_numpy`` checks a caller's)
     * ``row_ids`` — (nnz,) int64 row of each stored value
     """
 

@@ -2,7 +2,7 @@
 
 Port of ``sparse_matrix_math_tpu/formats/hyb.py``.  ``y = dia @ x + rest @ x``:
 the diagonal part is kernel K1 (``ops/dia_spmv.py``), the remainder the CSR
-gather and ``index_add_``.  HYB has no kernel of its own.
+gather and sum by row (ops/spmv.py:row_sum).  HYB has no kernel of its own.
 """
 
 from __future__ import annotations

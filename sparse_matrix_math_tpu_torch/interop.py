@@ -37,10 +37,13 @@ __all__ = ["csr_from_numpy", "dia_from_numpy", "jacobi_from_numpy", "triangular_
 
 def csr_from_numpy(indptr, indices, data, shape, device) -> CSRMatrix:
     """A :class:`CSRMatrix` from CSR arrays; ``row_ids`` derive from ``indptr``."""
-    indptr = torch.tensor(np.asarray(indptr, dtype=np.int64), device=device)
+    indptr = np.asarray(indptr, dtype=np.int64)
     n_rows = int(shape[0])
     if indptr.shape != (n_rows + 1,):
         raise ValueError(f"indptr has {indptr.shape[0]} entries, expected {n_rows + 1}")
+    if indptr[0] != 0 or indptr[-1] != np.asarray(data).shape[0] or np.any(np.diff(indptr) < 0):
+        raise ValueError("indptr must start at 0, not decrease and end at nnz")
+    indptr = torch.tensor(indptr, device=device)
     row_ids = torch.repeat_interleave(
         torch.arange(n_rows, device=device), torch.diff(indptr)
     )

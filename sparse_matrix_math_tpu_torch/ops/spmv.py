@@ -3,8 +3,10 @@
 Port of ``sparse_matrix_math_tpu/ops/spmv.py:94-136, 148-320``, the
 reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
 
-* CSR — gather ``x`` by column, multiply, ``index_add_`` by row.  The JAX
-  package computes this in XLA, not in a kernel, so plain torch is its port.
+* CSR — gather ``x`` by column, multiply, then :func:`row_sum`: each row's
+  products added in the entries' order, the same bits on every run.  The
+  JAX package computes this in XLA, not in a kernel, so plain torch is its
+  port.
 * DIA — the hand-written kernel :func:`~.dia_spmv.dia_spmv` (K1).
 * ELL — the kernel :func:`~.ell_spmv.ell_spmv` (K6) for a vector,
   :func:`~.ell_spmv.ell_spmm` (the panel kernel K8 runs too) for an
@@ -43,7 +45,26 @@ from . import wsell_spmv as _wsell
 _FORMATS = (CSRMatrix, DIAMatrix, ELLMatrix, HYBMatrix, WSellMatrix, ReorderedMatrix,
             RoutedMatrix, GridStencilMatrix)
 
-__all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator"]
+__all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator", "row_sum"]
+
+
+def row_sum(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """The sum of each row's run ``vals[row_ptr[i]:row_ptr[i + 1]]`` (an
+    ``(nnz,)`` vector or an ``(nnz, k)`` panel), in the entries' order; an
+    empty row sums to 0.
+
+    The same bits on every run: ``index_add_`` on a card adds with atomics,
+    in an order that changes from run to run, so a solve over it does not
+    repeat itself.  As a column, so that a card sums each row in one thread
+    (the 1-D form takes a thread block per row, ~50x slower at 2M short
+    rows, ``tools/dist_probe.py``).  ``row_ptr`` must be a valid row pointer
+    (``row_ptr[0] == 0``, non-decreasing, ``row_ptr[-1] == nnz``): its
+    constructors make it so, and checking it on every call would sync with the
+    host (``unsafe``).
+    """
+    col = vals[:, None] if vals.ndim == 1 else vals
+    out = torch.segment_reduce(col, "sum", offsets=row_ptr, axis=0, unsafe=True)
+    return out[:, 0] if vals.ndim == 1 else out
 
 
 def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -66,8 +87,7 @@ def rmult(a, x: torch.Tensor) -> torch.Tensor:
 def _rmult_csr(a: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     dtype = torch.promote_types(a.dtype, x.dtype)
     gathered = _bcast(a.data.to(dtype), x) * x.to(dtype).index_select(0, a.indices)
-    y = torch.zeros((a.shape[0],) + tuple(x.shape[1:]), dtype=dtype, device=x.device)
-    return y.index_add_(0, a.row_ids, gathered)
+    return row_sum(gathered, a.indptr)
 
 
 @rmult.register

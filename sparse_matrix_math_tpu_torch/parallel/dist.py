@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..formats.csr import CSRMatrix
+from ..ops.spmv import row_sum
 from ..precond.cheby_poly import widen_eig_bounds
 from ..precond.preconditioners import (
     IC0Preconditioner,
@@ -284,18 +285,6 @@ def _local_vector(v, a, mesh: RowMesh, dtype) -> torch.Tensor:
 # -- local (per-shard) products -----------------------------------------------
 
 
-def _row_sum(vals, row_ptr):
-    """The sum of each row's run ``vals[row_ptr[i]:row_ptr[i + 1]]``, in the
-    entries' order: the same bits on every run (``index_add_`` on a card
-    adds with atomics, in an order that changes from run to run).  As a
-    column, so that a card sums each row in one thread: the 1-D form takes
-    a thread block per row, ~50x slower at 2M short rows
-    (``tools/dist_probe.py``).  ``unsafe``: the offsets are right by
-    construction (``_pack_group``), and checking them on every call would
-    sync with the host."""
-    return torch.segment_reduce(vals[:, None], "sum", offsets=row_ptr, unsafe=True)[:, 0]
-
-
 def _local_spmv(data, cols, row_ptr, bdata, bcols, brow_ptr, x_local, *,
                 mesh: RowMesh, mode: str = "allgather"):
     """This shard's rows of ``A @ x``: gather by column, then sum by row.
@@ -308,12 +297,12 @@ def _local_spmv(data, cols, row_ptr, bdata, bcols, brow_ptr, x_local, *,
     """
     if mode == "halo":
         halo = halo_start(x_local, mesh)
-        y = _row_sum(data * x_local.index_select(0, cols), row_ptr)
+        y = row_sum(data * x_local.index_select(0, cols), row_ptr)
         left, right = halo.wait()
         xg = torch.cat([left, x_local, right])
-        return y + _row_sum(bdata * xg.index_select(0, bcols), brow_ptr)
+        return y + row_sum(bdata * xg.index_select(0, bcols), brow_ptr)
     xg = all_gather(x_local, mesh)
-    return _row_sum(data * xg.index_select(0, cols), row_ptr)
+    return row_sum(data * xg.index_select(0, cols), row_ptr)
 
 
 def _psum_dot(mesh: RowMesh):

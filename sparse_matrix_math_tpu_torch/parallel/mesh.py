@@ -15,7 +15,10 @@ distributed layer goes through this module and is counted in
   its left neighbour (arriving as ``right``), with the same wrap.  A peer
   that is the rank itself gets the block back with no wire traffic (a
   ``ppermute`` to self); at world size 2 both neighbours are one rank, and
-  the sends and receives are posted in one fixed order.
+  the sends and receives are posted in one fixed order;
+* :func:`open_halo_exchange` — the non-wrapping neighbour exchange of
+  edge planes (the JAX package's ``dist_multigrid._halo``): the first and
+  last ranks, and the only rank of a world of one, receive zeros.
 
 Placement (:func:`put_sharded`) copies only this rank's row block of a host
 array onto its device; :func:`gather_to_host` all-gathers a row-sharded
@@ -55,6 +58,7 @@ __all__ = [
     "all_gather",
     "halo_start",
     "halo_exchange",
+    "open_halo_exchange",
     "collectives",
     "reset_collective_counts",
 ]
@@ -65,6 +69,8 @@ ROW_AXIS = "rows"
 GROUP_TIMEOUT = timedelta(seconds=120)
 # A spawned CPU world that runs longer than this (seconds) is stopped.
 JOIN_TIMEOUT = 300.0
+# The thread pools of a spawned CPU rank: one thread each.
+_ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 # Collectives issued since the last reset: all-reduces, all-gathers, and halo
 # exchanges (``halo``), of which ``halo_wire`` went over the wire (a world of
@@ -180,8 +186,11 @@ def spawn_cpu_world(fn: Callable, k: int, *args, store_dir: Optional[str] = None
     ``store_dir``; returns the ranks' results in rank order.
 
     ``fn`` must be importable by the child processes (a module-level
-    function) and its results picklable.  The first rank to fail, or to die
-    without a result, stops the others and raises here; so does a world
+    function) and its results picklable.  Each rank runs one thread, in
+    torch and in NumPy's BLAS (k ranks with a pool of a thread per core
+    each spin against each other: a 1000 x 1000 inverse took ~5 s at 4
+    ranks on 8 cores instead of ~0.05 s).  The first rank to fail, or to
+    die without a result, stops the others and raises here; so does a world
     that outlasts :data:`JOIN_TIMEOUT`.
     """
     ctx = multiprocessing.get_context("spawn")
@@ -190,8 +199,17 @@ def spawn_cpu_world(fn: Callable, k: int, *args, store_dir: Optional[str] = None
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, r, k, os.path.join(tmp, "store"), results, args))
                  for r in range(k)]
-        for p in procs:
-            p.start()
+        saved = {name: os.environ.get(name) for name in _ONE_THREAD}
+        os.environ.update(_ONE_THREAD)  # read by the children's BLAS at import
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            for name, value in saved.items():
+                if value is None:
+                    os.environ.pop(name, None)
+                else:
+                    os.environ[name] = value
         out, done = [None] * k, set()
         deadline = time.monotonic() + JOIN_TIMEOUT
         try:
@@ -374,3 +392,32 @@ def halo_exchange(x_local: torch.Tensor, mesh: RowMesh):
     """``(left, right)``: the neighbour blocks of ``x_local`` (see
     :func:`halo_start`)."""
     return halo_start(x_local, mesh).wait()
+
+
+def open_halo_exchange(x_local: torch.Tensor, mesh: RowMesh):
+    """``(prev_last, next_first)``: the last plane (leading-axis row) of the
+    previous rank's block and the first plane of the next rank's, with no
+    wrap: rank 0 gets zeros for ``prev_last`` and the last rank zeros for
+    ``next_first`` (a Dirichlet boundary), as does the only rank of a world
+    of one.  JAX's two non-wrapping ``ppermute``\\ s, fwd
+    ``(i, i+1)`` and bwd ``(i+1, i)`` for ``i < P - 1``
+    (``dist_multigrid.py:196-203``); the operations are posted in one fixed
+    order on every rank."""
+    collectives["halo"] += 1
+    last = x_local[-1:].contiguous()
+    first = x_local[:1].contiguous()
+    prev_last, next_first = torch.zeros_like(last), torch.zeros_like(first)
+    ops = []
+    if mesh.rank + 1 < mesh.size:
+        hi = mesh.global_rank(mesh.rank + 1)
+        ops += [dist.P2POp(dist.isend, last, hi, mesh.group, _FWD),
+                dist.P2POp(dist.irecv, next_first, hi, mesh.group, _BWD)]
+    if mesh.rank > 0:
+        lo = mesh.global_rank(mesh.rank - 1)
+        ops += [dist.P2POp(dist.isend, first, lo, mesh.group, _BWD),
+                dist.P2POp(dist.irecv, prev_last, lo, mesh.group, _FWD)]
+    if ops:
+        collectives["halo_wire"] += 1
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return prev_last, next_first

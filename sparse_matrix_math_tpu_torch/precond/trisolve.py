@@ -17,7 +17,8 @@ offers two strategies instead:
 
 Each sweep's strict product runs through the W-SELL layout (kernel K7, or
 K8 for an ``(n, m)`` panel) when the strict part packs under the slot-ratio
-cap (trisolve.py:184-226), else it is a gather and an ``index_add_``.
+cap (trisolve.py:184-226), else it is a gather and a sum by row in the
+entries' order (ops/spmv.py:row_sum).
 ``strict_layout="auto"`` picks W-SELL for a factor on a CUDA device and the
 gather on the CPU.  A DIA matrix's preconditioner does not use either: the
 padded solve re-lays its factors for the fused sweep kernels.
@@ -26,6 +27,7 @@ padded solve re-lays its factors for the fused sweep kernels.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Optional
 
@@ -72,14 +74,21 @@ class TriangularMatrix:
     def device(self) -> torch.device:
         return self.diag.device
 
-    def _strict_matvec(self, x: torch.Tensor) -> torch.Tensor:
-        if self.wsell is not None:
-            from ..ops.spmv import rmult
+    @functools.cached_property
+    def row_ptr(self) -> torch.Tensor:
+        """The strict part's row pointer (``row_ids`` are sorted by
+        construction), worked out once, at the first gather product."""
+        ptr = torch.zeros(self.n + 1, dtype=torch.int64, device=self.device)
+        torch.cumsum(torch.bincount(self.row_ids, minlength=self.n), 0, out=ptr[1:])
+        return ptr
 
+    def _strict_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        from ..ops.spmv import rmult, row_sum
+
+        if self.wsell is not None:
             return rmult(self.wsell, x)
         d = self.data[:, None] if x.ndim == 2 else self.data
-        g = d * x.index_select(0, self.indices)
-        return torch.zeros_like(x).index_add_(0, self.row_ids, g)
+        return row_sum(d * x.index_select(0, self.indices), self.row_ptr)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """x with T x = b; ``b`` is (n,) or a multi-RHS panel (n, m)."""

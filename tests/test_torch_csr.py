@@ -13,6 +13,7 @@ import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 import sparse_matrix_math_tpu as jsmm
 import sparse_matrix_math_tpu_torch as smm
+from sparse_matrix_math_tpu_torch.interop import csr_from_numpy
 
 TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
 
@@ -187,3 +188,56 @@ def test_matmul_and_get_preconditioner(sample):
     r = np.random.default_rng(0).standard_normal(4)
     np.testing.assert_array_equal(tp.apply(torch.from_numpy(r)).numpy(),
                                   np.asarray(jp.apply(jnp.asarray(r))))
+
+
+def _sequential_row_sums(vals, row_nnz):
+    """Each row's run of ``vals`` (``(nnz,)`` or ``(nnz, k)``) added one entry
+    at a time from 0, in the entries' order, in their dtype."""
+    out = np.zeros((row_nnz.size,) + vals.shape[1:], vals.dtype)
+    for i, (lo, m) in enumerate(zip(np.cumsum(row_nnz) - row_nnz, row_nnz)):
+        acc = np.zeros(vals.shape[1:], vals.dtype)
+        for v in vals[lo:lo + m]:
+            acc = (acc + v).astype(vals.dtype)
+        out[i] = acc
+    return out
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("cols", [None, 3])
+def test_row_sum_is_sequential(dt, cols):
+    """ops/spmv.py:row_sum, the CSR, HYB-remainder, strict-triangular and
+    distributed shard products' sum by row, adds each row in the entries'
+    order, bit for bit a sequential NumPy sum, with empty rows (0) and for a
+    2-D panel; so does the CSR product over it."""
+    from sparse_matrix_math_tpu_torch.ops.spmv import row_sum
+
+    rng = np.random.default_rng(11)
+    row_nnz = rng.integers(0, 9, 150)
+    row_nnz[::13] = 0
+    row_nnz[-1] = 0
+    nnz = int(row_nnz.sum())
+    shape = (nnz,) if cols is None else (nnz, cols)
+    vals = (rng.standard_normal(shape)
+            * 10.0 ** rng.integers(-6, 7, shape)).astype(dt)
+    ptr = np.concatenate([[0], np.cumsum(row_nnz)])
+    got = row_sum(torch.from_numpy(vals), torch.from_numpy(ptr)).numpy()
+    want = _sequential_row_sums(vals, row_nnz)
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+    # the CSR product: the products of each row, summed in column order
+    indices = np.concatenate([np.sort(rng.choice(40, m, replace=False)) for m in row_nnz])
+    a = csr_from_numpy(ptr, indices, vals if cols is None else vals[:, 0],
+                                   (150, 40), "cpu")
+    x = rng.standard_normal((40,) if cols is None else (40, cols)).astype(dt)
+    prods = (a.data.numpy()[:, None] if cols else a.data.numpy()) * x[indices]
+    y = (a @ torch.from_numpy(x)).numpy()
+    assert np.array_equal(y, _sequential_row_sums(prods.astype(dt), row_nnz))
+
+
+def test_csr_from_numpy_checks_indptr():
+    """The product sums by ``indptr`` unchecked, so the one constructor that
+    takes a caller's arrays checks them."""
+    with pytest.raises(ValueError):
+        csr_from_numpy([0, 2, 1], [0, 1], [1.0, 2.0], (2, 2), "cpu")
+    with pytest.raises(ValueError):
+        csr_from_numpy([0, 1, 3], [0, 1], [1.0, 2.0], (2, 2), "cpu")

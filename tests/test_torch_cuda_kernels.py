@@ -964,3 +964,128 @@ def test_dist_solves_on_card(nccl_mesh, kind):
     assert np.abs(x - one.x.cpu().numpy()).max() <= 1e-8 * np.abs(x).max()
     if kind == "wsell":
         assert k7 == halos >= res.iterations + 2
+
+
+def _same_bits_in_8_runs(fn):
+    first = fn()
+    torch.cuda.synchronize()
+    return first, all(bits_equal(first, fn()) for _ in range(7))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_row_sum_products_repeat(cuda_device, dtype):
+    """The CSR product (a vector and a 2-D panel), the strict-triangular
+    gather product and HYB's remainder sum each row in the entries' order
+    (ops/spmv.py:row_sum): the same bits in 8 runs, and the bits of the CPU's
+    sequential sum of the same products."""
+    from sparse_matrix_math_tpu_torch.precond.trisolve import triangular_from_csr_arrays
+
+    csr = smm.uniform_random_csr(200_000, per_row=9, dtype=dtype, device=cuda_device)
+    cpu = smm.uniform_random_csr(200_000, per_row=9, dtype=dtype, device="cpu")
+    g = np.random.default_rng(4)
+    x = torch.as_tensor(g.standard_normal(200_000), device=cuda_device).to(dtype)
+    xs = torch.as_tensor(g.standard_normal((200_000, 3)), device=cuda_device).to(dtype)
+    for v in (x, xs):
+        y, same = _same_bits_in_8_runs(lambda: csr @ v)
+        assert same and bits_equal(y.cpu(), cpu @ v.cpu())
+    # a lower-triangular factor: the strict lower entries and a diagonal of
+    # 10; its strict part runs the gather path
+    r, c, v = cpu.row_ids.numpy(), cpu.indices.numpy(), cpu.data.numpy()
+    keep = c < r
+    diag = np.arange(200_000)
+    rows, cols = np.concatenate([r[keep], diag]), np.concatenate([c[keep], diag])
+    vals = np.concatenate([v[keep], np.full(200_000, 10.0, v.dtype)])
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=200_000))])
+    tri = {dev: triangular_from_csr_arrays(vals[order], cols[order], indptr, lower=True,
+                                           method="jacobi", sweeps=3, strict_layout="csr",
+                                           device=dev)
+           for dev in (cuda_device, "cpu")}
+    assert tri[cuda_device].wsell is None
+    z, same = _same_bits_in_8_runs(lambda: tri[cuda_device]._strict_matvec(x))
+    assert same and bits_equal(z.cpu(), tri["cpu"]._strict_matvec(x.cpu()))
+    # HYB: the remainder past the dominant diagonals is a CSR product
+    hyb = smm.hyb_from_csr(csr)
+    assert hyb.rest is not None
+    _, same = _same_bits_in_8_runs(lambda: hyb @ x)
+    assert same
+
+
+def test_generic_bicgstab_sgs_repeats(cuda_device, monkeypatch):
+    """The generic preconditioned solve (CSR products and SGS(4) gather
+    sweeps, no autoroute) gives the same count and x bit for bit on the same
+    b: with ``index_add_``'s atomics its count moved from call to call."""
+    monkeypatch.setenv("SMM_NO_AUTOROUTE", "1")
+    a = smm.poisson_2d(400, dtype=torch.float64, device=cuda_device)
+    b = a @ torch.ones(a.shape[0], dtype=torch.float64, device=cuda_device)
+    sgs = smm.SGSPreconditioner.from_matrix(a, method="jacobi", sweeps=4, strict_layout="csr")
+    runs = [smm.bicgstab(a, b, preconditioner=sgs, epsilon=1e-8, max_iterations=5000)
+            for _ in range(3)]
+    assert runs[0].status == smm.SolverStatus.SUCCESS
+    for r in runs[1:]:
+        assert r.iterations == runs[0].iterations and bits_equal(r.x, runs[0].x)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_dist_rsell_shard_is_k11_then_k7(nccl_mesh, dtype):
+    """One dist_routed_spmv shard product on the card is one K11 launch per
+    routing pass, then one K7 launch, bit for bit the plain versions of the
+    same chain; and a routed solve at world size 1 ends as the single-device
+    solve on the card does."""
+    from sparse_matrix_math_tpu_torch import parallel as par
+
+    csr = smm.uniform_random_csr(20_000, per_row=5, dtype=dtype, device="cpu")
+    d = par.distribute_routed(csr, nccl_mesh)
+    assert d.local.final.vals.device.type == "cuda" and d.n_passes >= 1
+    x = np.random.default_rng(0).standard_normal(csr.shape[0])
+    xl = par.distribute_vector(x, d).to(dtype)
+    k11, k7 = R.launches["stream_gather"], W.launches["wsell_spmv"]
+    y = par.dist_routed_spmv(d, xl)
+    torch.cuda.synchronize()
+    assert R.launches["stream_gather"] == k11 + d.n_passes
+    assert W.launches["wsell_spmv"] == k7 + 1
+    t = xl
+    for p in d.local.passes:
+        t = R.stream_gather_plain(p.base, p.meta, p.vals, t, x_rows=p.x_rows,
+                                  window_f=p.window_f)
+    assert bits_equal(y, S.sell_spmv_plain(d.local.final.sell, t))
+    b = (csr @ torch.ones(csr.shape[0], dtype=dtype)).numpy()
+    eps = 1e-4 if dtype == torch.float32 else 1e-9
+    res = par.dist_routed_solve(d, b, epsilon=eps)
+    single = smm.routed_from_csr(smm.uniform_random_csr(20_000, per_row=5, dtype=dtype,
+                                                        device=nccl_mesh.device))
+    one = smm.bicgstab(single, torch.as_tensor(b, device=nccl_mesh.device), epsilon=eps)
+    assert res.status == one.status == smm.SolverStatus.SUCCESS
+    assert abs(res.iterations - one.iterations) <= max(2, one.iterations // 10)
+    assert np.abs(par.collect(res.x, d) - 1.0).max() < (1e-3 if dtype == torch.float32 else 1e-6)
+
+
+@pytest.mark.parametrize("kind", ["df64", "multigrid"])
+def test_dist_df64_and_multigrid_on_card(nccl_mesh, kind):
+    """dist_cg_ir_df64 and dist_mg_solve (PCG) at world size 1 on the card
+    against the single-device solves on the card: the same status, rounds
+    and inner iterations within 5% (df64), the same count (multigrid)."""
+    from sparse_matrix_math_tpu_torch import parallel as par
+
+    dev = nccl_mesh.device
+    if kind == "df64":
+        p = smm.poisson_2d(64, dtype=torch.float64, device="cpu")
+        host = (p.data.numpy(), p.indices.numpy(), p.indptr.numpy())
+        dfa = smm.df_operator_from_host_csr(*host, p.shape, device=dev)
+        b = np.add.reduceat(host[0], host[2][:-1])
+        res = par.dist_cg_ir_df64(par.distribute_df_dia(dfa, nccl_mesh), b, epsilon=1e-10)
+        one = smm.cg_ir_df64(dfa, b, epsilon=1e-10)
+        assert res.status == one.status == smm.SolverStatus.SUCCESS
+        assert abs(res.outer_rounds - one.outer_rounds) <= 1
+        assert abs(res.iterations - one.iterations) <= max(3, one.iterations // 20)
+        x = res.x_f64()
+        assert np.linalg.norm(b - np.add.reduceat(host[0] * x[host[1]], host[2][:-1])) <= 1e-10
+    else:
+        a = smm.poisson_2d(96, dtype=torch.float32, device=dev)
+        mg = smm.PoissonMultigrid.for_grid(96, device=dev)
+        b = a @ torch.ones(a.shape[0], dtype=torch.float32, device=dev)
+        res = par.dist_mg_solve(par.distribute_multigrid(mg, nccl_mesh), b, epsilon=1e-4)
+        one = smm.cg(a, b, epsilon=1e-4, preconditioner=mg)
+        assert res.status == one.status == smm.SolverStatus.SUCCESS
+        assert res.iterations == one.iterations
+        assert float((res.x - 1.0).abs().max()) < 5e-4

@@ -5,7 +5,20 @@ conftest's virtual devices: twin of tests/test_dist_stencil.py.
 
 The rank-side cases are in tests/torch_dist_ranks.py, the tolerances in
 tests/torch_dist_check.py.  Iteration bands: CG and BiCGSymmetric within 1,
-BiCGStab and CGS max(3, 5%) (float64 throughout).
+BiCGStab max(3, 5%), CGS max(3, 20%) (float64 throughout).
+
+The CGS band rests on a measured spread.  ``convection_diffusion_2d(30)``,
+b = row sums, eps 1e-10: the two packages' CGS recurrences are the same
+line for line (solvers/cgs.py), and only the summation order of the dots
+moves the count, every run ending in SUCCESS.  JAX's ``dist_stencil_solve``
+on meshes of 1 / 2 / 4 / 8 devices: 108 / 104 / 109 / 113; JAX's
+single-device ``cgs_core`` on the CSR with ``jnp.vdot`` / ``sum(u * v)``:
+102 / 111.  The port at 1 / 2 / 4 ranks with the local dot as
+``torch.dot``: 97 / 102 / 114; ``torch.sum(u * v)``: 104 / 107 / 112; a
+pairwise tree: 98 / 110 / 106; ``math.fsum``: 111 / 105 / 95; a sequential
+sum: 113 / 94 / 98.  Every count lies in [94, 114]: two summation orders
+differ by up to 20 iterations, 19-21% of the counts, and ``torch.dot``'s
+own order depends on the machine's vector width.
 """
 
 import numpy as np
@@ -72,7 +85,8 @@ def test_solve_all_ones_oracle(port, name, solver, k):
     case = f"stencil_solve_{name}_{solver}"
     got = ok(port, k, case)
     its = int(jres.iterations)
-    b_its = 1 if solver in ("cg", "bicg_symmetric") else band(its, 0.05, 3)
+    b_its = {"cg": 1, "bicg_symmetric": 1, "bicgstab": band(its, 0.05, 3),
+             "cgs": band(its, 0.20, 3)}[solver]
     a_sp = scipy_csr(a)
     check_solve(got, jres, collect(jres.x, ds), a_sp, b, b_its, 1e-10)
     assert got["status"] == 0 and np.abs(got["x"] - 1.0).max() < 1e-8

@@ -477,11 +477,12 @@ def test_solve_check_refuses_a_wrong_x():
 
 
 def test_row_sum_in_entry_order():
-    """The CSR shard product's row sum adds each row's run of products in
+    """The CSR shard product's row sum (ops/spmv.py:row_sum, which the
+    single-device CSR product shares) adds each row's run of products in
     the entries' order (empty rows give 0): the bits of a sequential sum."""
     import torch
 
-    from sparse_matrix_math_tpu_torch.parallel.dist import _row_sum
+    from sparse_matrix_math_tpu_torch.ops.spmv import row_sum as _row_sum
 
     rng = np.random.default_rng(3)
     row_nnz = rng.integers(0, 7, 200)

@@ -290,3 +290,14 @@ def test_csr_npz_cross_packages(tmp_path, dtype):
         np.testing.assert_array_equal(arrays[0], np.asarray(ja.data))
         np.testing.assert_array_equal(arrays[1], np.asarray(ja.indices))
         np.testing.assert_array_equal(arrays[2], np.asarray(ja.indptr))
+
+
+def test_port_parallel_exports_every_jax_parallel_name():
+    """Every name of the JAX package's ``parallel.__all__`` is importable
+    from the port's ``parallel`` (the distributed module port is whole)."""
+    import sparse_matrix_math_tpu.parallel as jpar
+    import sparse_matrix_math_tpu_torch.parallel as par
+
+    assert set(jpar.__all__) - set(par.__all__) == set()
+    for name in jpar.__all__:
+        assert getattr(par, name) is not None

@@ -1,5 +1,6 @@
 """Rank-side cases of the port's distributed tests (tests/test_torch_parallel.py,
-tests/test_torch_dist_stencil.py).
+tests/test_torch_dist_stencil.py, tests/test_torch_dist_rsell.py,
+tests/test_torch_dist_df64.py, tests/test_torch_dist_multigrid.py).
 
 Every case runs on every rank of a gloo CPU world and returns a picklable
 payload (global vectors gathered with ``collect``, so each rank's payload
@@ -22,11 +23,20 @@ import torch.distributed as dist
 
 import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu_torch import native
+from sparse_matrix_math_tpu_torch.formats.csr import csr_from_dense
 from sparse_matrix_math_tpu_torch.formats.dia import DIAMatrix
+from sparse_matrix_math_tpu_torch.ops.df32 import DfDiaMatrix
 from sparse_matrix_math_tpu_torch.parallel import (
     collect,
+    dist_bicgstab_ir_df64,
+    dist_cg_ir_df64,
+    dist_df_dia_spmv,
     dist_dia_solve,
     dist_dia_spmv,
+    dist_mg_solve,
+    dist_mg_vcycle,
+    dist_routed_solve,
+    dist_routed_spmv,
     dist_solve,
     dist_spmv,
     dist_stencil_solve,
@@ -34,15 +44,19 @@ from sparse_matrix_math_tpu_torch.parallel import (
     dist_wsell_solve,
     dist_wsell_spmv,
     distribute_csr,
+    distribute_df_dia,
     distribute_dia,
+    distribute_multigrid,
     distribute_preconditioner,
+    distribute_routed,
     distribute_stencil,
     distribute_vector,
     distribute_wsell,
     make_mesh,
     spawn_cpu_world,
 )
-from sparse_matrix_math_tpu_torch.parallel.mesh import GROUP_TIMEOUT
+from sparse_matrix_math_tpu_torch.parallel.mesh import GROUP_TIMEOUT, all_gather
+from sparse_matrix_math_tpu_torch.solvers.multigrid import PoissonMultigrid
 from sparse_matrix_math_tpu_torch.utils import generate as gen
 from sparse_matrix_math_tpu_torch.utils.checkpoint import checkpointed_solve, load_checkpoint
 
@@ -393,6 +407,196 @@ def stencil_single_chip(mesh, workdir):
     ds = distribute_stencil(smm.try_grid_stencil_from_csr(a), mesh)
     b = np.random.default_rng(5).standard_normal(a.shape[0])
     return solved(dist_stencil_solve(ds, b, solver="cg", epsilon=1e-11), ds)
+
+
+# -- tests/test_torch_dist_rsell.py -------------------------------------------
+
+RSELL_N = 6 * 1024  # at 4 ranks the blocks are 2048 rows: the last holds none
+
+
+def rsell_system():
+    a = gen.uniform_random_csr(RSELL_N, per_row=4, seed=7, dtype=torch.float32, device=CPU)
+    return a, np.random.default_rng(0).standard_normal(RSELL_N).astype(np.float32)
+
+
+@case
+def rsell_spmv(mesh, workdir):
+    a, x = rsell_system()
+    da = distribute_routed(a, mesh, max_slot_ratio=99.0)
+    y = dist_routed_spmv(da, distribute_vector(x, da))
+    rows = torch.tensor([da.local.final.nnz], dtype=torch.int64)
+    return {"y_padded": da.gather_vector(y), "padded_rows": da.padded_rows,
+            "n_shards": da.n_shards, "n_passes": da.n_passes, "slot_ratio": da.slot_ratio,
+            "final_nway": da.final_nway, "shard_nnz": all_gather(rows, mesh).tolist()}
+
+
+for _solver in ("bicgstab", "gmres"):
+    def _rsell_solve(mesh, workdir, solver=_solver):
+        a, _ = rsell_system()
+        b = (a @ torch.ones(RSELL_N, dtype=torch.float32)).numpy()
+        da = distribute_routed(a, mesh, max_slot_ratio=99.0)
+        return solved(dist_routed_solve(da, b, epsilon=1e-4, solver=solver), da)
+
+    CASES[f"rsell_solve_{_solver}"] = _rsell_solve
+
+
+@case
+def rsell_rectangular(mesh, workdir):
+    return distribute_routed(csr_from_dense(torch.ones((8, 4), dtype=torch.float64)), mesh)
+
+
+@case
+def rsell_slot_cap(mesh, workdir):
+    return distribute_routed(rsell_system()[0], mesh, max_slot_ratio=1.0)
+
+
+@case
+def rsell_unknown_solver(mesh, workdir):
+    a, x = rsell_system()
+    return dist_routed_solve(distribute_routed(a, mesh, max_slot_ratio=99.0), x,
+                             solver="chebyshev")
+
+
+# -- tests/test_torch_dist_df64.py --------------------------------------------
+
+
+def df_dia_host(nx, perturb=True, drift=0.0):
+    """The JAX test's ``_df_dia_host``: poisson_2d(nx) in float64, its values
+    perturbed (non-trivial lo planes) and an optional drift on the +1
+    diagonal; the operator and its host CSR arrays."""
+    a = gen.poisson_2d(nx, dtype=torch.float64, device=CPU)
+    data = a.data.numpy().copy()
+    indices, indptr = a.indices.numpy(), a.indptr.numpy()
+    if perturb:
+        data = data * (1.0 + 1e-9 * np.arange(data.size))
+    if drift:
+        rows = np.repeat(np.arange(a.shape[0]), np.diff(indptr))
+        data[indices == rows + 1] += drift
+    return (DfDiaMatrix.from_host_csr(data, indices, indptr, a.shape, device=CPU),
+            data, indices, indptr)
+
+
+def csr_mv(data, indices, indptr, x):
+    return np.add.reduceat(data * x[indices], indptr[:-1])
+
+
+def df_solved(res):
+    return {"status": int(res.status), "iterations": int(res.iterations),
+            "outer_rounds": int(res.outer_rounds), "x": res.x_f64(),
+            "residual_norm2": float(res.residual_norm2)}
+
+
+@case
+def df_spmv(mesh, workdir):
+    dfa, *_ = df_dia_host(24)
+    d = distribute_df_dia(dfa, mesh)
+    x64 = np.random.default_rng(0).standard_normal(dfa.shape[0])
+    hi = x64.astype(np.float32)
+    lo = (x64 - hi.astype(np.float64)).astype(np.float32)
+    # this rank's (hi, lo) blocks, as JAX's test passes the sharded pair
+    yh, yl = dist_df_dia_spmv(d, (distribute_vector(hi, d), distribute_vector(lo, d)))
+    return {"hi": collect(yh, d), "lo": collect(yl, d), "block_rows": d.block_rows}
+
+
+@case
+def df_cg_ir(mesh, workdir):
+    dfa, data, indices, indptr = df_dia_host(48)
+    b = csr_mv(data, indices, indptr,
+               np.random.default_rng(1).standard_normal(dfa.shape[0]))
+    out = df_solved(dist_cg_ir_df64(distribute_df_dia(dfa, mesh), b, epsilon=1e-10))
+    out["single"] = df_solved(smm.cg_ir_df64(dfa, b, epsilon=1e-10))
+    return out
+
+
+@case
+def df_bicgstab_ir(mesh, workdir):
+    dfa, data, indices, indptr = df_dia_host(32, drift=1e-2)
+    b = csr_mv(data, indices, indptr,
+               np.random.default_rng(2).standard_normal(dfa.shape[0]))
+    return df_solved(dist_bicgstab_ir_df64(distribute_df_dia(dfa, mesh), b, epsilon=1e-9))
+
+
+@case
+def df_status_paths(mesh, workdir):
+    dfa, data, indices, indptr = df_dia_host(8)
+    n = dfa.shape[0]
+    d = distribute_df_dia(dfa, mesh)
+    capped = dist_cg_ir_df64(d, np.ones(n), max_iterations=0)
+    x_true = np.random.default_rng(3).standard_normal(n)
+    resumed = dist_cg_ir_df64(d, csr_mv(data, indices, indptr, x_true), x0=x_true,
+                              epsilon=1e-8)
+    return {"capped": int(capped.status),
+            "resumed": (int(resumed.status), int(resumed.iterations),
+                        int(resumed.outer_rounds))}
+
+
+@case
+def df_tiny_epsilon(mesh, workdir):
+    dfa, *_ = df_dia_host(8)
+    return dist_cg_ir_df64(distribute_df_dia(dfa, mesh), np.ones(dfa.shape[0]),
+                           epsilon=1e-20)
+
+
+@case
+def df_wide_band(mesh, workdir):
+    # offsets past the block cannot be covered by the neighbour exchange
+    n = 64
+    data = np.ones(2 * n - 40, np.float64)
+    rows = np.concatenate([np.arange(n), np.arange(n - 40)])
+    cols = np.concatenate([np.arange(n), np.arange(40, n)])
+    order = np.lexsort((cols, rows))
+    indptr = np.cumsum(np.concatenate([[0], np.bincount(rows, minlength=n)]))
+    dfa = DfDiaMatrix.from_host_csr(data[order], cols[order], indptr, (n, n), device=CPU)
+    return distribute_df_dia(dfa, mesh).block_rows
+
+
+# -- tests/test_torch_dist_multigrid.py ---------------------------------------
+
+MG_VCYCLE_GRIDS = {"96": (96,), "90": (90,), "48": (48,), "40x72": (40, 72)}
+
+
+def mg_rand(n, seed):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+for _name, _grid in MG_VCYCLE_GRIDS.items():
+    def _mg_vcycle(mesh, workdir, grid=_grid):
+        mg = PoissonMultigrid.for_grid(*grid, device=CPU)
+        n = int(np.prod(mg.dims[0]))
+        dmg = distribute_multigrid(mg, mesh)
+        z = dist_mg_vcycle(dmg, mg_rand(n, grid[0] if len(grid) == 1 else 7))
+        return {"z": z.numpy(), "levels": dmg.n_levels_dist, "m0s": dmg.m0s}
+
+    CASES[f"mg_vcycle_{_name}"] = _mg_vcycle
+
+# (solver, grid, epsilon)
+MG_SOLVES = {"pcg_96": ("pcg", (96,), 1e-4), "cg_48": ("cg", (48,), 1e-4),
+             "mg_90": ("mg", (90,), 1e-3), "pcg_20x20x20": ("pcg", (20, 20, 20), 1e-4)}
+
+for _name, (_solver, _grid, _eps) in MG_SOLVES.items():
+    def _mg_solve(mesh, workdir, solver=_solver, grid=_grid, eps=_eps):
+        a = (gen.poisson_2d(grid[0], dtype=torch.float32, device=CPU) if len(grid) == 1
+             else gen.poisson_3d(grid[0], dtype=torch.float32, device=CPU))
+        mg = PoissonMultigrid.for_grid(*grid, device=CPU)
+        b = a @ torch.ones(a.shape[0], dtype=torch.float32)
+        res = dist_mg_solve(distribute_multigrid(mg, mesh), b, solver=solver, epsilon=eps)
+        out = {"status": int(res.status), "iterations": int(res.iterations),
+               "x": res.x.numpy()}
+        if solver == "mg":
+            out["single_iterations"] = int(mg.solve(b, epsilon=eps).iterations)
+        else:
+            out["single_iterations"] = int(
+                smm.cg(a, b, epsilon=eps, preconditioner=mg if solver == "pcg" else None
+                       ).iterations)
+        return out
+
+    CASES[f"mg_solve_{_name}"] = _mg_solve
+
+
+@case
+def mg_unknown_solver(mesh, workdir):
+    dmg = distribute_multigrid(PoissonMultigrid.for_grid(48, device=CPU), mesh)
+    return dist_mg_solve(dmg, np.ones(48 * 48, np.float32), solver="gmres")
 
 
 def fail_on_rank_one(mesh):

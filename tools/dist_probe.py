@@ -17,7 +17,7 @@ On ``poisson_2d(nx)`` (default 1414, the bench system) in float32:
 * the CSR shard product's row sum four ways, on its own shard arrays: by
   ``index_add_`` (atomics on a card), by ``torch.segment_reduce`` over the
   vector, over a column with its checked lengths (it syncs with the host),
-  and by ``dist.py``'s ``_row_sum`` (over a column, the offsets unchecked):
+  and by ``ops/spmv.py``'s ``row_sum`` (over a column, the offsets unchecked):
   device time per call, and whether 8 runs give the same bits;
 * CG's wall per iteration (512 iterations, median and least of 3 timed runs
   after a warm one) over the distributed CSR product and over K1, each with
@@ -27,8 +27,8 @@ On ``poisson_2d(nx)`` (default 1414, the bench system) in float32:
   1e-8): the single-device padded solve (K2, K4) and the generic one (the
   CSR with ``SMM_NO_AUTOROUTE=1``: index products, triangular sweeps), each on
   b and on three copies of b with every entry scaled by ``1 + 1e-15 g``
-  (g standard normal, seeds 1-3), beside ``dist_solve`` on b twice (it
-  repeats itself) and on the first copy.
+  (g standard normal, seeds 1-3; the generic one on b twice first), beside
+  ``dist_solve`` on b twice (both repeat themselves) and on the first copy.
 
 Prints the card's name and power limit, and one JSON line last.
 """
@@ -87,6 +87,7 @@ def main() -> int:
     from sparse_matrix_math_tpu_torch import parallel as par
     from sparse_matrix_math_tpu_torch.ops import _build
     from sparse_matrix_math_tpu_torch.parallel import dist as D
+    from sparse_matrix_math_tpu_torch.ops import spmv as SP
     from sparse_matrix_math_tpu_torch.parallel import dist_dia as DD
     from sparse_matrix_math_tpu_torch.parallel import dist_stencil as DS
     from sparse_matrix_math_tpu_torch.parallel import mesh as M
@@ -137,7 +138,7 @@ def main() -> int:
                 vals, "sum", offsets=d.row_ptr, unsafe=True),
             "segment_reduce, column, checked lengths": lambda: torch.segment_reduce(
                 vals[:, None], "sum", lengths=lengths)[:, 0],
-            "segment_reduce, column (_row_sum)": lambda: D._row_sum(vals, d.row_ptr),
+            "segment_reduce, column (row_sum)": lambda: SP.row_sum(vals, d.row_ptr),
         }
         row_sum = {}
         for name, fn in sums.items():
@@ -201,7 +202,7 @@ def main() -> int:
         os.environ["SMM_NO_AUTOROUTE"] = "1"
         try:
             spread["generic"] = runs(lambda bb: smm.bicgstab(p64, bb, preconditioner=sgs, **kw),
-                                     rhs)
+                                     [b] + rhs)
         finally:
             del os.environ["SMM_NO_AUTOROUTE"]
         spread["dist_solve"] = runs(lambda bb: par.dist_solve(
