@@ -52,10 +52,15 @@ the launch counters reset just before the solves.  Phase R does both for the
 front door and the routed path: the JAX bench's zero-locality system
 (``uniform_random_csr(2_000_000, per_row=5)``, 12M nnz) laid out as the routed
 R-SELL chain, the stream-gather kernel K11 against its plain version on every
-routing pass in f32 and f64, the whole chain (K11 per pass, then K7) beside
-the port's CSR product and ``torch.sparse_csr_tensor``, then
+routing pass in f32 and f64, the routed product (one launch of the SELL
+kernel over the chain folded into its final layout, ``RoutedMatrix.sell``)
+against its plain version and against the chain itself (K11 per pass, then
+K7), bit for bit, timed from CUDA graphs beside the chain and
+``torch.sparse_csr_tensor``, then
 ``solve(csr, b, method="bicgstab", auto_format=True)`` in f32 and f64, which
-must go through a ``RoutedMatrix``; ``solve(..., auto_format=True)`` on
+must go through a ``RoutedMatrix`` (one folded launch per product, K11 only
+in the fold, status, count and ``floor_hit`` those of the same solve over
+the chain); ``solve(..., auto_format=True)`` on
 ``poisson_2d(1414)``, which must go through the matrix-free grid stencil, and
 its pre-route to the double-word refinement at eps 1e-8 on f32 data; and
 ``bicg_symmetric`` and ``cgs`` on the padded path.  Phase H does both for
@@ -70,8 +75,8 @@ same epsilon (wall, device time per iteration), and ``solve(csr, b,
 auto_format=True, matrix_dtype="bfloat16")``, which must keep DIA and warn
 on the 5-point stencil only.  Phase G runs the solver tail.  Phase U drives
 the last single-process modules at the bench system's size: ``spmv_throughput``
-for CSR, DIA (K1), ELL (K6), W-SELL (K7) and phase R's routed chain (K11,
-then K7), each beside the same product's CUDA-graph time, ``solve_with_stats``
+for CSR, DIA (K1), ELL (K6), W-SELL (K7) and phase R's routed matrix (one
+folded launch), each beside the same product's CUDA-graph time, ``solve_with_stats``
 beside a plain ``cg``, ``checkpointed_solve`` stopped after two chunks and
 resumed from its file against an uninterrupted run, ``trace`` (its Chrome
 trace must name K2), the command line (``python -m
@@ -116,6 +121,8 @@ _SELL_SOURCE = "sparse_matrix_math_tpu_torch/csrc/sell_spmv.cu"
 _DF_SOURCE = "sparse_matrix_math_tpu_torch/csrc/dia_spmv_df.cu"
 _RSELL_PALLAS = "sparse_matrix_math_tpu/ops/pallas_rsell.py"
 _STREAM_SOURCE = "sparse_matrix_math_tpu_torch/csrc/stream_gather.cu"
+# torch.profiler's group of the folded routed product: K7's kernel, sell_kernel
+_ROUTED_GROUP = "routed_spmv sell_kernel"
 # the card's memory rate, for each kernel's bound: bytes / rate (H100 SXM
 # data sheet; the kernels here are bound by bytes, not operations)
 _HBM_BYTES_PER_S = 3.35e12
@@ -947,7 +954,8 @@ def phase_w(smm, loop, torch, dev, cg_f64_its):
                 f"rmult(ELL, X (n, {k})): {-(-k // 8)} panel launch(es), bit for bit {k} K6 "
                 "products", quiet=True)
     del xs, ys, cols
-    counts = {**W.launches, **E.launches}
+    # the W-SELL and ELL wrappers' counts (the routed ones are phase R's)
+    counts = {k: v for k, v in {**W.launches, **E.launches}.items() if not k.startswith("routed")}
     print(f"phase W launches: {counts}; iterations: "
           + ", ".join(f"{k} {r.iterations}" for k, r in res.items()))
     for kname, n in counts.items():
@@ -1381,15 +1389,18 @@ class record_best_format:
             setattr(self.formats, name, fn)
 
 
-def phase_r(smm, loop, torch, dev, dia_solves):
+def phase_r(smm, loop, torch, dev, dia_solves, n: int = 2_000_000, nx: int = 1414):
     """The front door and the routed path at full width: the JAX bench's
     zero-locality system (bench.py:756-806) as an R-SELL chain, K11 against its
-    plain version on every pass, the chain beside the CSR products, then
+    plain version on every pass, the folded product against its plain
+    version and the chain, timed beside the chain and the CSR products, then
     ``solve(..., auto_format=True)`` through a RoutedMatrix (f32, f64) and
     through the grid stencil, the pre-route to the double-word refinement,
     and BiCGSymmetric and CGS on the padded path, with every launch counter
     at 0 just before the solves.  ``dia_solves`` maps phase B's labels to
-    (iterations, warm wall seconds), None to run those two CG solves here."""
+    (iterations, warm wall seconds), None to run those two CG solves here.
+    ``n`` and ``nx`` are the routed system's rows and the grid side (smaller
+    ones rehearse the phase)."""
     import numpy as np
 
     import sparse_matrix_math_tpu_torch.formats as formats
@@ -1400,10 +1411,12 @@ def phase_r(smm, loop, torch, dev, dia_solves):
     from sparse_matrix_math_tpu_torch.ops import stream_gather as R
     from sparse_matrix_math_tpu_torch.ops import trisweep as T
     from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+    from sparse_matrix_math_tpu_torch.formats.rsell import fold_chain
+    from sparse_matrix_math_tpu_torch.ops.spmv import routed_chain_rmult
 
-    print("== phase R: the front door, the routed chain (K11, then K7) and the grid stencil")
+    print("== phase R: the front door, the routed product (the chain folded into one launch) "
+          "and the grid stencil")
     t_start = time.perf_counter()
-    n = 2_000_000  # the JAX bench's size for the routed case
     t0 = time.perf_counter()
     csr = {dt: smm.uniform_random_csr(n, per_row=5, dtype=dt, device=dev)
            for dt in (torch.float32, torch.float64)}
@@ -1416,7 +1429,9 @@ def phase_r(smm, loop, torch, dev, dia_solves):
           f"routed_from_csr f32 on the host in {build_s:.1f} s: {len(ra32.passes)} routing "
           f"passes of {[p.n_vregs for p in ra32.passes]} vregs (window_f "
           f"{ra32.passes[0].window_f}), final W-SELL {ra32.final.n_vregs} vregs nway "
-          f"{ra32.final.nway}, slot_ratio {ra32.slot_ratio:.3f} slots per nonzero")
+          f"{ra32.final.nway}, slot_ratio {ra32.slot_ratio:.3f} slots per nonzero (the "
+          f"chain's); folded layout {ra32.sell.n_slots} slots, "
+          f"{ra32.sell.slots_per_nonzero:.4f} per nonzero")
 
     # -- the front door first: its f64 chain also serves the kernel checks ----
     for mod in (K, T, W, E, D, R):
@@ -1449,6 +1464,7 @@ def phase_r(smm, loop, torch, dev, dia_solves):
                     f"RoutedMatrix; the solve returned a SolveResult")
             k11 = R.launches["stream_gather"] - before["R"]["stream_gather"]
             k7 = W.launches["wsell_spmv"] - before["W"]["wsell_spmv"]
+            kr = W.launches["routed_spmv"] - before["W"]["routed_spmv"]
             # the solve itself, warm: the operator is the one best_format built
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1456,13 +1472,16 @@ def phase_r(smm, loop, torch, dev, dia_solves):
             float(warm.residual_norm)
             torch.cuda.synchronize()
             warm_wall = time.perf_counter() - t0
-            # K11 and K7 of each counted solve: passes x matvecs and matvecs
+            # each counted solve: one folded launch per matvec; K11 only in
+            # the fold of the matrix best_format built (passes launches)
             per_solve[f"bicgstab {name}"] = {"passes": len(op.passes), "stream_gather": k11,
-                                             "wsell_spmv": k7}
+                                             "routed_spmv": kr, "wsell_spmv": k7}
+            warm_n = {k: W.launches[k] - before["W"][k] - n
+                      for k, n in (("routed_spmv", kr), ("wsell_spmv", k7))}
             per_solve[f"bicgstab {name}, warm repeat"] = {
                 "passes": len(op.passes),
                 "stream_gather": R.launches["stream_gather"] - before["R"]["stream_gather"] - k11,
-                "wsell_spmv": W.launches["wsell_spmv"] - before["W"]["wsell_spmv"] - k7}
+                **warm_n}
             true64, same = host_residuals(a, b, res.x)
             ref = true64 if dt == torch.float64 else same
             reported, its = float(res.residual_norm), res.iterations
@@ -1471,38 +1490,62 @@ def phase_r(smm, loop, torch, dev, dia_solves):
                   f"the layout build {wall:.1f} s, warm solve {warm_wall:.4f} s "
                   f"({1e6 * warm_wall / max(warm.iterations, 1):.1f} us/iteration, "
                   f"{warm.iterations} iterations), {loop.host_syncs['count'] - syncs0} host "
-                  f"syncs, launches K11 {k11}, K7 {k7}")
+                  f"syncs, launches: folded product {kr}, K11 {k11} (the fold), K7 {k7}")
             require(res.status == smm.SolverStatus.SUCCESS and reported <= eps
                     and abs(reported - ref) <= 0.01 * ref,
                     f"{label}: SUCCESS, residual_norm {reported:.4e} <= {eps:.0e} and within "
                     f"1% of the host residual {ref:.4e}")
             require(tuple(res.x.shape) == (n,) and bool(torch.isfinite(res.x).all()),
                     f"{label}: x finite, shape {tuple(res.x.shape)}", quiet=True)
-            require(k7 >= 2 * its + 2 and k11 == len(op.passes) * k7,
-                    f"{label}: K7 launched {k7} times (>= 2 x {its} iterations + 2), K11 "
-                    f"{k11} = {len(op.passes)} passes x {k7} matvecs")
-            solved[dt] = op
-            del ab, b, res, warm
+            warm_k11 = per_solve[f"bicgstab {name}, warm repeat"]["stream_gather"]
+            require(kr >= 2 * its + 2 and k11 == len(op.passes) and k7 == 0
+                    and warm_n["routed_spmv"] >= 2 * warm.iterations + 2
+                    and warm_k11 == warm_n["wsell_spmv"] == 0,
+                    f"{label}: one folded launch per matvec ({kr} >= 2 x {its} iterations + 2; "
+                    f"warm {warm_n['routed_spmv']}), K11 {k11} = {len(op.passes)} passes in the "
+                    f"one fold (warm {warm_k11}), K7 {k7}")
+            solved[dt] = (op, b, eps, res, warm)
+            del ab
     # read before the comparison launches below, which do not count
-    routed_counts = {**R.launches, "wsell_spmv": W.launches["wsell_spmv"]}
-    for kname in ("stream_gather", "wsell_spmv"):
+    routed_counts = {**R.launches, "wsell_spmv": W.launches["wsell_spmv"],
+                     "routed_spmv": W.launches["routed_spmv"]}
+    for kname in ("stream_gather", "routed_spmv", "wsell_spmv"):
         require(routed_counts[kname] == sum(c[kname] for c in per_solve.values()),
                 f"{kname}: the count of the front-door solves is the sum of its solves'",
                 quiet=True)
-    op32, op64 = solved[torch.float32], solved[torch.float64]
+    # the parent's solves: the same BiCGStab over the chain itself (K11 per
+    # pass, then K7), whose products the folded ones equal bit for bit
+    for dt, (op, b, eps, res, warm) in solved.items():
+        label = f"bicgstab uniform_random({n}) {str(dt)[6:]}"
+        chain = smm.solve(lambda v, op=op: routed_chain_rmult(op, v), b, method="bicgstab",
+                          epsilon=eps, max_iterations=2000)
+        repeats = bits_equal(torch, warm.x, res.x)
+        print(f"{label} over the chain: {chain.status_enum().name} iterations={chain.iterations} "
+              f"floor_hit={chain.floor_hit}; the folded solve repeats itself bit for bit: "
+              f"{repeats}")
+        require(chain.status == res.status == warm.status
+                and chain.iterations == res.iterations == warm.iterations
+                and chain.floor_hit == res.floor_hit == warm.floor_hit
+                and (not repeats or bits_equal(torch, chain.x, res.x)),
+                f"{label}: the folded solve's status {res.status_enum().name}, "
+                f"{res.iterations} iterations and floor_hit {res.floor_hit} are the chain's"
+                + (", x bit for bit" if repeats else " (the solve does not repeat itself)"))
+        del chain
+    op32, op64 = solved[torch.float32][0], solved[torch.float64][0]
     same_planes = len(op32.passes) == len(ra32.passes) and all(
         torch.equal(getattr(p, f), getattr(q, f)) for p, q in zip(op32.passes, ra32.passes)
         for f in ("vals", "meta", "base")) and all(
         torch.equal(getattr(op32.final, f), getattr(ra32.final, f))
         for f in ("vals", "meta", "base", "slab"))
-    require(same_planes, "best_format's f32 chain has the planes of routed_from_csr(csr, "
-                         "max_slot_ratio=16.0), the bench's build")
+    require(same_planes and torch.equal(op32.sell.cols, ra32.sell.cols),
+            "best_format's f32 chain has the planes and the fold of routed_from_csr(csr, "
+            "max_slot_ratio=16.0), the bench's build")
     del op32, solved
 
     # -- K11 against its plain version on every pass, f32 and f64 -------------
     gen = torch.Generator(device=dev).manual_seed(5)
     stats = {"err": 0.0}
-    chains = {}
+    chains, folded = {}, {}
     for dt, ra in ((torch.float32, ra32), (torch.float64, op64)):
         name = str(dt)[6:]
         x = (torch.rand(n, generator=gen, device=dev, dtype=torch.float64) - 0.5).to(dt)
@@ -1536,8 +1579,7 @@ def phase_r(smm, loop, torch, dev, dia_solves):
             if dt == torch.float32 and b_ms > stats.get("bound_ms", 0.0):
                 stats.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)  # the largest pass
             t = out
-        # the final W-SELL pass over the routed stream, and the whole chain
-        # against the float64 product on the host and the port's CSR rmult
+        # the final W-SELL pass over the routed stream: the chain's last step (K7)
         fin = ra.final
         y_fin = W.wsell_spmv(fin, t)
         require(bits_equal(torch, y_fin, S.sell_spmv_plain(fin.sell, t))
@@ -1550,8 +1592,37 @@ def phase_r(smm, loop, torch, dev, dia_solves):
         fin_lib = final_pass_csr(smm, torch, fin)
         fin_info["library_ms"] = median_ms(lambda: fin_lib @ t)
         del fin_lib
+        # the product: one launch over the folded layout, bit for bit its
+        # plain version and the chain, at this x, x = ones and a normal x
+        nr = W.launches["routed_spmv"]
         y = ra @ x
-        require(torch.equal(y, y_fin), f"rmult(RoutedMatrix) {name} is the chain", quiet=True)
+        y_plain = S.sell_spmv_plain(ra.sell, x)
+        torch.cuda.synchronize()
+        fold_err = (y - y_plain).abs().max().item()
+        require(W.launches["routed_spmv"] == nr + 1 and bits_equal(torch, y, y_plain)
+                and bits_equal(torch, y, y_fin),
+                f"folded product {name}: one launch, bit for bit its plain version and the "
+                f"chain (K11 x {len(ra.passes)}, then K7) at x = U(-0.5, 0.5)")
+        gen_n = torch.Generator(device=dev).manual_seed(7)
+        for xname, xx in (("ones", torch.ones(n, dtype=dt, device=dev)),
+                          ("standard normal (seed 7)",
+                           torch.randn(n, generator=gen_n, device=dev,
+                                       dtype=torch.float64).to(dt))):
+            yy = ra @ xx
+            require(bits_equal(torch, yy, S.sell_spmv_plain(ra.sell, xx))
+                    and bits_equal(torch, yy, routed_chain_rmult(ra, xx)),
+                    f"folded product {name}, x = {xname}: bit for bit its plain version and "
+                    f"the chain")
+        del yy, xx, y_plain
+        # the fold once more, timed: K11 over the index table, once per pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fold_chain(ra.passes, ra.final, ra.shape)
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+        require(torch.equal(again.cols, ra.sell.cols),
+                f"the fold {name} derived again on the card is the one built", quiet=True)
+        del again
         import scipy.sparse as sp
 
         a = csr[dt]
@@ -1576,30 +1647,70 @@ def phase_r(smm, loop, torch, dev, dia_solves):
               f"{fin_info['planes_slots_per_nonzero']:.4f}), layout derived in "
               f"{fin_info['layout_build_s']:.3f} s (same as built: {fin_info['same_as_built']}); "
               f"chain bytes {nbytes_all + fin_bytes}")
-        chains[dt] = (passes_ms, final_ms, bound_ms(nbytes_all + fin_bytes), fin_info)
+        chain_bound = bound_ms(nbytes_all + fin_bytes)
         del t, out, y, y_fin, x
+        # the folded product, the chain and the library's CSR product on x =
+        # ones (the bench's form), each from a CUDA graph of 20 calls and
+        # through its wrapper (events, 20 calls, median of 11), in turns
+        ones = torch.ones(n, dtype=dt, device=dev)
+        lib = library_csr(torch, a.data, a.indices, a.indptr, a.shape)
+        calls = {"folded": lambda: ra @ ones, "chain": lambda: routed_chain_rmult(ra, ones),
+                 "library": lambda: lib @ ones}
+        graph, wrapper = {}, {}
+        for key, fn in calls.items():
+            try:
+                graph[key] = graph_ms(torch, fn)
+            except RuntimeError as err:  # the library's call, if a graph cannot hold it
+                if key != "library":
+                    raise
+                torch.cuda.synchronize()
+                graph[key] = None
+                print(f"  {key} {name}: not captured in a CUDA graph ({err})")
+            wrapper[key] = median_ms(fn)
+        wrapper["csr_rmult"] = median_ms(lambda: a @ ones)
+        plain_ms = median_ms(lambda: S.sell_spmv_plain(ra.sell, ones), samples=3, calls=2)
+        f_bytes = sell_bytes(ra.sell, ones.element_size())
+        f_bound = bound_ms(f_bytes)
+        l2_bytes = 32 * ra.sell.nnz  # one 32 B sector of x per gathered entry
+        g_ms = graph["folded"]
+
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.4f} ms"
+
+        print(f"routed product {name}, x = ones: folded {fmt(g_ms)} from a graph "
+              f"({100 * f_bound / g_ms:.0f}% of its {f_bound:.4f} ms bound, {f_bytes} B; L2 "
+              f"sectors of x {l2_bytes} B), {wrapper['folded']:.4f} ms through the wrapper; "
+              f"the chain {fmt(graph['chain'])} from a graph, {wrapper['chain']:.4f} ms "
+              f"(bound {chain_bound:.4f} ms); torch.sparse_csr_tensor @ x "
+              f"{fmt(graph['library'])} from a graph, {wrapper['library']:.4f} ms; the port's "
+              f"CSR rmult {wrapper['csr_rmult']:.4f} ms; plain {plain_ms:.3f} ms; fold on the "
+              f"card {fold_s:.3f} s ({len(ra.passes)} K11 launches); "
+              f"{a.nnz / g_ms / 1e6:.2f} GNNZ/s")
+        folded[dt] = {"err": fold_err, "ms": g_ms, "plain_ms": plain_ms, "bound_ms": f_bound,
+                      "library_ms": (wrapper["library"] if graph["library"] is None
+                                     else graph["library"]),
+                      "wrapper_ms": wrapper["folded"],
+                      "library_wrapper_ms": wrapper["library"],
+                      "chain_graph_ms": graph["chain"], "chain_wrapper_ms": wrapper["chain"],
+                      "csr_rmult_ms": wrapper["csr_rmult"], "bytes": f_bytes,
+                      "l2_sector_bytes": l2_bytes, "fold_s": fold_s,
+                      "slots_per_nonzero": ra.sell.slots_per_nonzero}
+        chains[dt] = (passes_ms, final_ms, chain_bound, fin_info)
+        del lib, ones, calls
     del op64
     torch.cuda.empty_cache()
 
-    # -- the bench's own form: the product in a loop, x = ones, f32 ------------
-    ones = torch.ones(n, dtype=torch.float32, device=dev)
-    lib = library_csr(torch, c32.data, c32.indices, c32.indptr, c32.shape)
-    chain_ms = median_ms(lambda: ra32 @ ones)
-    csr_ms = median_ms(lambda: c32 @ ones)
-    lib_ms = median_ms(lambda: lib @ ones)
     passes_ms, final_ms, chain_bound, fin_info = chains[torch.float32]
-    stats.update(library_ms=lib_ms, passes_ms=passes_ms, final_ms=final_ms, chain_ms=chain_ms,
-                 chain_bound_ms=chain_bound, csr_ms=csr_ms, launches_per_solve=per_solve,
-                 final_pass={"ms": final_ms, **fin_info})
-    print(f"routed product f32, x = ones: chain {chain_ms:.4f} ms "
-          f"({c32.nnz / chain_ms / 1e6:.2f} GNNZ/s; passes {sum(passes_ms):.4f} ms + final K7 "
-          f"{final_ms:.4f} ms; {100 * chain_bound / chain_ms:.0f}% of the chain's "
-          f"{chain_bound:.4f} ms bound), the port's CSR rmult {csr_ms:.4f} ms "
-          f"({c32.nnz / csr_ms / 1e6:.2f} GNNZ/s), torch.sparse_csr_tensor @ x {lib_ms:.4f} ms "
-          f"({c32.nnz / lib_ms / 1e6:.2f} GNNZ/s); build {build_s:.1f} s, slot_ratio "
-          f"{ra32.slot_ratio:.3f}, {len(ra32.passes)} passes")
+    f32 = folded[torch.float32]
+    stats.update(library_ms=f32["library_wrapper_ms"], passes_ms=passes_ms, final_ms=final_ms,
+                 chain_ms=f32["chain_wrapper_ms"], chain_graph_ms=f32["chain_graph_ms"],
+                 chain_bound_ms=chain_bound, csr_ms=f32["csr_rmult_ms"],
+                 launches_per_solve=per_solve, final_pass={"ms": final_ms, **fin_info},
+                 folded={**f32, "f64": folded[torch.float64]})
     stats["routed_f32"] = ra32  # phase U times its product through spmv_throughput
-    del lib, ra32, ones
+    print(f"routed f32 build: routed_from_csr {build_s:.1f} s with the fold, slot_ratio "
+          f"{ra32.slot_ratio:.3f}, {len(ra32.passes)} passes")
+    del ra32
     torch.cuda.empty_cache()
 
     # -- CG through a routed chain: the symmetric part (A + A^T)/2, f32 --------
@@ -1612,15 +1723,36 @@ def phase_r(smm, loop, torch, dev, dia_solves):
         np.concatenate([r_h, c_h]), np.concatenate([c_h, r_h]), np.concatenate([v_h, v_h]),
         (n, n), device=dev))
     t1 = time.perf_counter()
+    k11 = R.launches["stream_gather"]
     ra_sym = smm.routed_from_csr(sym, max_slot_ratio=16.0)
+    torch.cuda.synchronize()
+    fold_k11 = R.launches["stream_gather"] - k11
+    routed_counts["stream_gather"] += fold_k11
     print(f"(A + A^T)/2: nnz={sym.nnz}, assembled on the host in {t1 - t0:.1f} s, routed in "
           f"{time.perf_counter() - t1:.1f} s: {len(ra_sym.passes)} passes, slot_ratio "
-          f"{ra_sym.slot_ratio:.3f}")
+          f"{ra_sym.slot_ratio:.3f}, folded with {fold_k11} K11 launches")
+    require(fold_k11 == len(ra_sym.passes),
+            f"(A + A^T)/2: the fold launched K11 once per pass ({fold_k11})", quiet=True)
     ab = sym @ torch.as_tensor(x_true, device=dev).to(torch.float32)
-    general_solve(smm, loop, torch, f"cg routed (A + A^T)/2 uniform_random({n}) f32", smm.cg,
-                  ra_sym, ab / torch.linalg.norm(ab), sym, dict(epsilon=1e-4, max_iterations=2000),
-                  R.launches, "stream_gather", len(ra_sym.passes))
-    del r_h, c_h, v_h, sym, ra_sym, ab, csr, c32
+    b_sym = ab / torch.linalg.norm(ab)
+    label = f"cg routed (A + A^T)/2 uniform_random({n}) f32"
+    kw = dict(epsilon=1e-4, max_iterations=2000)
+    nr, k11, k7 = W.launches["routed_spmv"], R.launches["stream_gather"], W.launches["wsell_spmv"]
+    res = general_solve(smm, loop, torch, label, smm.cg, ra_sym, b_sym, sym, kw, W.launches,
+                        "routed_spmv", 1)
+    routed_counts["routed_spmv"] += W.launches["routed_spmv"] - nr
+    require(R.launches["stream_gather"] == k11 and W.launches["wsell_spmv"] == k7,
+            f"{label}: no K11 and no K7 launch in the solves", quiet=True)
+    again = smm.cg(ra_sym, b_sym, **kw)
+    chain = smm.cg(lambda v: routed_chain_rmult(ra_sym, v), b_sym, **kw)
+    repeats = bits_equal(torch, again.x, res.x)
+    require(chain.status == res.status and chain.iterations == res.iterations
+            and chain.floor_hit == res.floor_hit
+            and (not repeats or bits_equal(torch, chain.x, res.x)),
+            f"{label}: status {res.status_enum().name}, {res.iterations} iterations and "
+            f"floor_hit {res.floor_hit} as CG over the chain"
+            + (", x bit for bit" if repeats else " (the solve does not repeat itself)"))
+    del r_h, c_h, v_h, sym, ra_sym, ab, b_sym, csr, c32, res, again, chain
     torch.cuda.empty_cache()
 
     # -- the grid-stencil route and the pre-route ------------------------------
@@ -1635,8 +1767,8 @@ def phase_r(smm, loop, torch, dev, dia_solves):
                 f"{expect.__name__}", quiet=True)
         return res, wall, spy.chosen[-1]
 
-    p32 = smm.poisson_2d(1414, dtype=torch.float32, device=dev)
-    p64 = smm.poisson_2d(1414, dtype=torch.float64, device=dev)
+    p32 = smm.poisson_2d(nx, dtype=torch.float32, device=dev)
+    p64 = smm.poisson_2d(nx, dtype=torch.float64, device=dev)
     b32 = p32 @ torch.ones(p32.shape[0], dtype=torch.float32, device=dev)
     b64 = p64 @ torch.ones(p64.shape[0], dtype=torch.float64, device=dev)
     if dia_solves is None:  # phase R alone: phase B's two CG solves, warm
@@ -1649,14 +1781,14 @@ def phase_r(smm, loop, torch, dev, dia_solves):
                 ref = smm.cg(a, b, **kw)
                 float(ref.residual_norm)
                 torch.cuda.synchronize()
-                dia_solves[f"cg poisson_2d(1414) {name}"] = (ref.iterations,
+                dia_solves[f"cg poisson_2d({nx}) {name}"] = (ref.iterations,
                                                              time.perf_counter() - t0)
     for label, a, b, kw, dia_label in (
-            ("stencil cg poisson_2d(1414) f32", p32, b32,
+            (f"stencil cg poisson_2d({nx}) f32", p32, b32,
              dict(epsilon=1e-4, max_iterations=6000, auto_escalate=False),
-             "cg poisson_2d(1414) f32"),
-            ("stencil cg poisson_2d(1414) f64", p64, b64,
-             dict(epsilon=1e-8, max_iterations=20000), "cg poisson_2d(1414) f64")):
+             f"cg poisson_2d({nx}) f32"),
+            (f"stencil cg poisson_2d({nx}) f64", p64, b64,
+             dict(epsilon=1e-8, max_iterations=20000), f"cg poisson_2d({nx}) f64")):
         k2 = K.launches["dia_spmv_padded"]
         res, wall, st = front_door(label, a, b, smm.GridStencilMatrix, **kw)
         torch.cuda.synchronize()
@@ -1688,7 +1820,7 @@ def phase_r(smm, loop, torch, dev, dia_solves):
                 f"{label}: {its} iterations within {band} of the DIA path's {dia_its}, no DIA "
                 f"kernel launched")
     k9, k2 = D.launches["dia_spmv_padded_df"], K.launches["dia_spmv_padded"]
-    res, wall, _ = front_door("pre-route poisson_2d(1414) f32 eps 1e-8", p32, b32,
+    res, wall, _ = front_door(f"pre-route poisson_2d({nx}) f32 eps 1e-8", p32, b32,
                               smm.GridStencilMatrix, epsilon=1e-8, max_iterations=30000)
     require(isinstance(res, smm.DfSolveResult) and res.status == smm.SolverStatus.SUCCESS,
             "solve(f32 data, epsilon=1e-8, auto_format=True) pre-routes to the double-word "
@@ -1696,7 +1828,7 @@ def phase_r(smm, loop, torch, dev, dia_solves):
     data, indices, indptr = host_csr_arrays(p64)
     true64 = float(np.linalg.norm(b64.cpu().numpy() - np.add.reduceat(
         data * res.x_f64()[indices], indptr[:-1])))
-    print(f"pre-route poisson_2d(1414) f32 eps 1e-8: {res!r} in {res.outer_rounds} rounds, host "
+    print(f"pre-route poisson_2d({nx}) f32 eps 1e-8: {res!r} in {res.outer_rounds} rounds, host "
           f"f64 residual {true64:.4e}; wall {wall:.2f} s; launches K9 "
           f"{D.launches['dia_spmv_padded_df'] - k9}, K2 {K.launches['dia_spmv_padded'] - k2}")
     require(true64 <= 1e-8 and D.launches["dia_spmv_padded_df"] > k9,
@@ -1704,13 +1836,13 @@ def phase_r(smm, loop, torch, dev, dia_solves):
 
     # -- BiCGSymmetric and CGS on the padded path (K2) -------------------------
     for solver in (smm.bicg_symmetric, smm.cgs):
-        general_solve(smm, loop, torch, f"{solver.__name__} poisson_2d(1414) f64", solver, p64,
+        general_solve(smm, loop, torch, f"{solver.__name__} poisson_2d({nx}) f64", solver, p64,
                       b64, p64, dict(epsilon=1e-8, max_iterations=20000), K.launches,
                       "dia_spmv_padded", 1 if solver is smm.bicg_symmetric else 2,
                       route=smm.DIAMatrix)
     counts = {**routed_counts, "dia_spmv_padded": K.launches["dia_spmv_padded"]}
     print(f"phase R launches: {counts}; phase R took {time.perf_counter() - t_start:.1f} s")
-    for kname in ("stream_gather", "wsell_spmv", "dia_spmv_padded"):
+    for kname in ("stream_gather", "routed_spmv", "dia_spmv_padded"):
         require(counts[kname] > 0, f"front door launched {kname} {counts[kname]} times",
                 quiet=True)
     return stats, counts
@@ -2286,8 +2418,8 @@ def phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its, nx: int = 1414,
             chunk: int = 500):
     """The last single-process modules at the bench system's size
     (``poisson_2d(1414)``): ``spmv_throughput`` for CSR, DIA (K1), ELL (K6)
-    and W-SELL (K7) in f32 and for phase R's routed chain (K11 per pass,
-    then K7), each beside the same product's time from a CUDA graph on the
+    and W-SELL (K7) in f32 and for phase R's routed matrix (one launch over
+    the folded chain), each beside the same product's time from a CUDA graph on the
     same inputs (a reading below it would be a missing sync) and the
     earlier phases' readings in ``earlier`` (name: (what, ms)); then
     ``solve_with_stats(cg)`` on DIA in f64 beside a plain ``cg``;
@@ -2331,7 +2463,7 @@ def phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its, nx: int = 1414,
     calls = 20 + 2  # spmv_throughput's timed products and its warm-up
     expect = {"csr": {}, "dia": {"dia_spmv": calls}, "ell": {"ell_spmv": calls},
               "wsell": {"wsell_spmv": calls},
-              "routed": {"stream_gather": calls * len(routed.passes), "wsell_spmv": calls}}
+              "routed": {"routed_spmv": calls, "stream_gather": 0, "wsell_spmv": 0}}
     for name, op in ops.items():
         st, added = counted(lambda: smm.spmv_throughput(op))
         ms = 1e3 * st["seconds_per_op"]
@@ -2504,7 +2636,7 @@ def phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its, nx: int = 1414,
 
     stats["launches"] = measured
     stats["seconds"] = time.perf_counter() - t_start
-    for kname in ("dia_spmv", "dia_spmv_padded", "ell_spmv", "wsell_spmv", "stream_gather",
+    for kname in ("dia_spmv", "dia_spmv_padded", "ell_spmv", "wsell_spmv", "routed_spmv",
                   "dia_spmv_padded_df"):
         require(measured[kname] > 0, f"phase U launched {kname} {measured[kname]} times",
                 quiet=True)
@@ -2628,12 +2760,13 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
                     nx: int = 1414, m3: int = 243):
     """Phase X's solves of the last three distributed modules, each held
     against the single-device solve of the same system: ``dist_routed_solve``
-    (BiCGStab f32 on phase R's system, b = A·ones, eps 1e-4; K11 per pass and
-    K7 last in the shard), ``dist_cg_ir_df64`` (phase D's ``poisson_2d(nx)``
+    (BiCGStab f32 on phase R's system, b = A·ones, eps 1e-4; one launch over
+    the shard's folded chain per product, K11 once per pass in the fold at
+    build), ``dist_cg_ir_df64`` (phase D's ``poisson_2d(nx)``
     to 1e-10) and ``dist_mg_solve`` (PCG f32 with the distributed V-cycle on
     phase G's ``poisson_3d(m3)``).  ``routed`` is phase R's single-device
     chain of the system (None: built here).  Returns the readings and the
-    K11 and K7 launches of the routed solve."""
+    launches of the routed solve: the folded product's and the fold's K11."""
     import numpy as np
 
     from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
@@ -2641,7 +2774,7 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
 
     out = {}
     t_start = time.perf_counter()
-    # -- dist_rsell: the routed chain in the shard (K11 per pass, K7 last) ------
+    # -- dist_rsell: the shard's chain folded, one launch per shard product ----
     t0 = time.perf_counter()
     u32 = smm.uniform_random_csr(n_r, per_row=5, dtype=torch.float32, device=dev)
     ones = torch.ones(n_r, dtype=torch.float32, device=dev)
@@ -2649,9 +2782,13 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
     if routed is None:
         routed = smm.routed_from_csr(u32, max_slot_ratio=16.0)
     t1 = time.perf_counter()
+    R.reset_launch_counts()
     du = par.distribute_routed(u32, mesh)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    fold_k11 = R.launches["stream_gather"]
+    require(fold_k11 == du.n_passes,
+            f"distribute_routed: the shard's fold launched K11 once per pass ({fold_k11})")
     loc = du.local
     print(f"uniform_random_csr({n_r}, per_row=5) f32: distribute_routed on the host in "
           f"{t2 - t1:.1f} s: block {du.block_rows}, {du.n_passes} passes of "
@@ -2665,16 +2802,19 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
     W.reset_launch_counts()
     y = par.dist_routed_spmv(du, xl)
     torch.cuda.synchronize()
-    require(R.launches["stream_gather"] == du.n_passes and W.launches["wsell_spmv"] == 1,
-            f"dist_routed_spmv: {R.launches['stream_gather']} K11 launches (one per pass) and "
-            f"{W.launches['wsell_spmv']} K7 launch")
+    require(W.launches["routed_spmv"] == 1 and R.launches["stream_gather"] == 0
+            and W.launches["wsell_spmv"] == 0,
+            f"dist_routed_spmv: {W.launches['routed_spmv']} folded launch, "
+            f"{R.launches['stream_gather']} K11, {W.launches['wsell_spmv']} K7")
     t = xl  # the all-gathered x of a world of one rank
     for p in loc.passes:
         t = R.stream_gather_plain(p.base, p.meta, p.vals, t, x_rows=p.x_rows,
                                   window_f=p.window_f)
-    require(bits_equal(torch, y, S.sell_spmv_plain(loc.final.sell, t)),
-            "dist_routed_spmv shard product (the all-gather, K11 per pass, K7) bit for bit "
-            "the chain's plain versions (stream_gather_plain, sell_spmv_plain)")
+    require(bits_equal(torch, y, S.sell_spmv_plain(loc.final.sell, t))
+            and bits_equal(torch, y, S.sell_spmv_plain(loc.sell, xl)),
+            "dist_routed_spmv shard product (the all-gather, one folded launch) bit for bit "
+            "the shard's plain chain (stream_gather_plain per pass, sell_spmv_plain) and the "
+            "folded layout's plain version")
     kw = dict(epsilon=1e-4, max_iterations=2000)
     label = f"dist_routed_solve bicgstab uniform_random({n_r}) f32"
     R.reset_launch_counts()
@@ -2683,12 +2823,13 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
     res, wall = timed_solve(torch, lambda: par.dist_routed_solve(du, bu, solver="bicgstab",
                                                                    **kw))
     products = par.mesh.collectives["all_gather"] - gathers
-    k11, k7 = R.launches["stream_gather"], W.launches["wsell_spmv"]
+    k11, k7, kr = (R.launches["stream_gather"], W.launches["wsell_spmv"],
+                   W.launches["routed_spmv"])
     print(f"{label}: {res.status_enum().name} in {res.iterations} iterations, {wall:.3f} s; "
-          f"K11 launches {k11}, K7 {k7}, products (all-gathers) {products}")
-    require(k7 == products > res.iterations and k11 == du.n_passes * products,
-            f"{label}: {du.n_passes + 1} launches per product ({k11} K11 = {du.n_passes} x "
-            f"{products} products, {k7} K7)")
+          f"folded launches {kr}, K11 {k11}, K7 {k7}, products (all-gathers) {products}")
+    require(kr == products > res.iterations and k11 == k7 == 0,
+            f"{label}: one folded launch per product ({kr} launches, {products} products; "
+            f"K11 {k11}, K7 {k7})")
 
     def band(frac, least):
         def interval(its):
@@ -2705,13 +2846,14 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
         du, bu, solver="bicgstab", **(kw if m is None else dict(kw, max_iterations=m))),
         single, u32, bu, 1e-4, band(0.25, 4), groups)
     wl = out[label]["window_launches"]
-    require(wl["K11 stream_gather"] == du.n_passes * wl["K7 sell_kernel"] > 0,
-            f"{label}: torch.profiler sees {wl['K11 stream_gather']} K11 and "
-            f"{wl['K7 sell_kernel']} K7 launches in the window, {du.n_passes} + 1 per product")
-    out[label].update(k11_launches=k11, k7_launches=k7, products=products,
+    require(wl[_ROUTED_GROUP] > 0 and wl["K11 stream_gather"] == 0,
+            f"{label}: torch.profiler sees {wl[_ROUTED_GROUP]} folded launches and "
+            f"{wl['K11 stream_gather']} K11 in the window, one launch per product")
+    out[label].update(routed_spmv_launches=kr, fold_k11_launches=fold_k11, k11_launches=k11,
+                      k7_launches=k7, products=products,
                       passes=du.n_passes, slot_ratio=du.slot_ratio,
                       single_slot_ratio=routed.slot_ratio, build_s=t2 - t1)
-    launches = {"stream_gather": k11, "wsell_spmv": k7}
+    launches = {"stream_gather": fold_k11, "routed_spmv": kr, "wsell_spmv": k7}
     del du, u32, bu, ones, routed, y, t, xl
     torch.cuda.empty_cache()
 
@@ -2788,8 +2930,8 @@ def phase_x(smm, W, torch, dev, dia_solves, routed=None, nx: int = 1414, m: int 
     ``dist_mg_solve``; ``routed`` is phase R's chain), each against the
     single-device solve of the same system; then the distributed example
     under ``torch.distributed.run`` and at ``--cpu 2``.  Returns the
-    readings and the launches of K7 (the W-SELL and routed solves) and K11
-    (the routed solve)."""
+    readings and the launches of K7 (the W-SELL solve), the folded routed
+    product (the routed solve) and K11 (the routed shard's fold)."""
     import shutil
     import tempfile
 
@@ -2926,9 +3068,12 @@ def phase_x(smm, W, torch, dev, dia_solves, routed=None, nx: int = 1414, m: int 
         out[label]["k7_launches"] = k7
         del dw, g32, w32
         torch.cuda.empty_cache()
+        # the routed solve's sell_kernel launches are its folded products
         more, launches = phase_x_modules(
             smm, W, torch, par, mesh, dev,
-            groups + [("K11 stream_gather", ("stream_gather",))], routed, nx=nx)
+            [(_ROUTED_GROUP, subs) if name == "K7 sell_kernel" else (name, subs)
+             for name, subs in groups] + [("K11 stream_gather", ("stream_gather",))],
+            routed, nx=nx)
         out.update(more)
         launches["wsell_spmv"] += k7
     finally:
@@ -3012,7 +3157,7 @@ def main() -> int:
                        wstats["ell_spmv"]["ms"]),
                "wsell": ("phase W's K7 at laplace_3d_jittered(113), events",
                          wstats["wsell_spmv"]["ms"]),
-               "routed": ("phase R's chain, events", rstats["chain_ms"])}
+               "routed": ("phase R's folded product, events", rstats["folded"]["wrapper_ms"])}
     routed = rstats.pop("routed_f32")
     ustats = phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its)
     ulaunch = ustats["launches"]
@@ -3102,7 +3247,8 @@ def main() -> int:
               layout=layout(wstats["ell_spmv"])),
         # K7: launches are phase W's and phase G's measured runs' (the ILU0
         # factors' strict products under GMRES), and phase X's distributed
-        # W-SELL and routed solves' (every shard product)
+        # W-SELL solve's (every shard product); routed_final_pass is the
+        # routed chain's last step, timed beside the folded product
         entry("sell_kernel for wsell_kernel k=1 (wsell_spmv)", _SELL_SOURCE,
               f"{_WSELL_PALLAS}:89",
               wcounts["wsell_spmv"] + glaunch["wsell_spmv"] + ulaunch["wsell_spmv"]
@@ -3112,8 +3258,7 @@ def main() -> int:
               phase_x_launches=xlaunch["wsell_spmv"],
               phase_u_spmv_throughput=ustats["throughput"]["wsell"],
               also_replaces=f"{_WSELL_PALLAS}:119", entry=f"{_WSELL_PALLAS}:207",
-              layout=layout(wstats["wsell_spmv"]), routed_chain_launches=rcounts["wsell_spmv"],
-              routed_final_pass=rstats["final_pass"]),
+              layout=layout(wstats["wsell_spmv"]), routed_final_pass=rstats["final_pass"]),
         # K8: the panel instantiations of the same kernel; ms, bound_ms (the
         # entries once, X and Y k times) and library_ms at k = 4 f32, every
         # case in cases; launches are phase M's (cg_multi), launches_per_solve
@@ -3133,23 +3278,48 @@ def main() -> int:
               dstats, phase_u_launches=ulaunch["dia_spmv_padded_df"],
               also_replaces=f"{_PALLAS}:594", entry=f"{_PALLAS}:560",
               f64_csr_ms=dstats["f64_csr_ms"]),
-        # ms, plain_ms and bound_ms are of the chain's largest routing pass;
-        # no PyTorch call computes one pass, so library_ms is the CSR product
-        # that the whole chain (every pass, then K7) computes; launches sums
-        # the front-door solves that launches_per_solve lists one by one,
-        # phase U's and phase X's distributed routed solve's
+        # K11 folds each routed matrix's chain once, at build (one launch per
+        # pass over the index table); ms, plain_ms and bound_ms are of the
+        # chain's largest routing pass; no PyTorch call computes one pass, so
+        # library_ms is the CSR product that the whole chain (every pass, then
+        # K7) computes, events through the wrapper like chain_ms; launches
+        # are the folds of phase R's front-door and CG matrices and of phase
+        # X's shard (phase U builds none)
         entry("stream_gather_kernel (stream_gather)", _STREAM_SOURCE, f"{_RSELL_PALLAS}:32",
               rcounts["stream_gather"] + ulaunch["stream_gather"] + xlaunch["stream_gather"],
               rstats, phase_u_launches=ulaunch["stream_gather"],
               phase_x_launches=xlaunch["stream_gather"],
-              phase_u_spmv_throughput=ustats["throughput"]["routed"],
               also_replaces=f"{_RSELL_PALLAS}:47",
               entry=f"{_RSELL_PALLAS}:89", library_of="the whole chain",
               passes_ms=rstats["passes_ms"], final_wsell_ms=rstats["final_ms"],
-              chain_ms=rstats["chain_ms"], chain_bound_ms=rstats["chain_bound_ms"],
-              csr_rmult_ms=rstats["csr_ms"], chain_wsell_launches=rcounts["wsell_spmv"],
+              chain_ms=rstats["chain_ms"], chain_graph_ms=rstats["chain_graph_ms"],
+              chain_bound_ms=rstats["chain_bound_ms"], csr_rmult_ms=rstats["csr_ms"],
+              fold_s=rstats["folded"]["fold_s"], launches_per_solve=rstats["launches_per_solve"]),
+        # the routed product since the redesign: one launch of the SELL kernel
+        # over the chain folded into its final layout (RoutedMatrix.sell), in
+        # place of K11 per pass and K7; ms and library_ms from CUDA graphs of
+        # 20 calls at x = ones f32 (wrapper_ms, library_wrapper_ms through the
+        # wrappers), bound_ms sell_bytes over the folded layout, l2_sector_bytes
+        # one 32 B sector of x per entry; launches are the front-door BiCGStab
+        # and CG solves', phase U's spmv_throughput and phase X's shard's
+        entry("sell_kernel over the folded routed chain (routed_spmv)", _SELL_SOURCE,
+              f"{_RSELL_PALLAS}:32",
+              rcounts["routed_spmv"] + ulaunch["routed_spmv"] + xlaunch["routed_spmv"],
+              rstats["folded"], phase_r_launches=rcounts["routed_spmv"],
+              phase_u_launches=ulaunch["routed_spmv"], phase_x_launches=xlaunch["routed_spmv"],
+              phase_u_spmv_throughput=ustats["throughput"]["routed"],
+              also_replaces=f"{_WSELL_PALLAS}:89", entry=f"{_RSELL_PALLAS}:89",
+              wrapper_ms=rstats["folded"]["wrapper_ms"],
+              library_wrapper_ms=rstats["folded"]["library_wrapper_ms"],
+              chain_graph_ms=rstats["folded"]["chain_graph_ms"],
+              chain_wrapper_ms=rstats["folded"]["chain_wrapper_ms"],
+              l2_sector_bytes=rstats["folded"]["l2_sector_bytes"],
+              fold_s=rstats["folded"]["fold_s"], f64=rstats["folded"]["f64"],
               launches_per_solve=rstats["launches_per_solve"]),
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: launched {k['launches']} times on the main path",
+                quiet=True)
     print(built)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -24,9 +24,9 @@ sweep kernels in ``csrc/trisweep.cu``; the matvec of a W-SELL solve, each
 strict-factor product of its preconditioner, and an ELL matrix's product
 are ``csrc/sell_spmv.cu`` over the slab-sorted SELL-32 layout each matrix
 carries (``formats/sell.py``), and so is a W-SELL or ELL panel product (up to
-8 columns per launch, the panel products of :func:`cg_multi`); each routing
-pass of a
-:class:`RoutedMatrix` is ``csrc/stream_gather.cu``.  :func:`cg_df64`,
+8 columns per launch, the panel products of :func:`cg_multi`), and so is a
+:class:`RoutedMatrix`'s product, over its routing chain folded once into
+that layout by ``csrc/stream_gather.cu``.  :func:`cg_df64`,
 :func:`bicgstab_df64`, :func:`cg_ir_df64` and :func:`bicgstab_ir_df64` solve
 with double-word operators (:class:`DfDiaMatrix`, :class:`DfEllMatrix`,
 :func:`load_matrix_df`); a DfDiaMatrix's product is ``csrc/dia_spmv_df.cu``.

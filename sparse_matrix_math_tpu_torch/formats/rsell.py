@@ -25,6 +25,17 @@ The slot assignment of a pass meets the W-SELL constraints per vreg: one
 element per (row, out lane), one window row per (row, source lane).  The
 closed-form packer :func:`_pack_pass` meets both and keeps the next pass's
 per-lane histograms flat.
+
+The chain exists because a TPU cannot gather anywhere in HBM; a card reads
+x through its 50 MB L2.  Every routing pass only moves values (its slots
+hold 1.0, or 0 in padding), so slot j of the last stream holds exactly
+``x[c(j)]``, c the composition of the passes' source maps.  ``RoutedMatrix.sell``
+(not a JAX field) is the chain folded once per matrix (:func:`fold_chain`):
+the final pass's slab-sorted SELL-32 layout with each column word j
+rewritten to c(j), so a product is one launch of the SELL kernel over x
+(ops/spmv.py), with the chain's terms in the chain's order.  The passes and
+the final planes stay as the JAX package builds them;
+``ops/spmv.py:routed_chain_rmult`` still runs the chain itself.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 
 from .. import native
 from .csr import CSRMatrix
+from .sell import CONT, SellMatrix, column_words
 from .wsell import (
     LANE,
     SLAB,
@@ -49,7 +61,7 @@ from .wsell import (
     chunk_for,
 )
 
-__all__ = ["StreamPass", "RoutedMatrix", "routed_from_csr", "try_routed_from_csr"]
+__all__ = ["StreamPass", "RoutedMatrix", "fold_chain", "routed_from_csr", "try_routed_from_csr"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +95,14 @@ class RoutedMatrix:
     final: WSellMatrix
     shape: Tuple[int, int]
     nnz: int
-    slot_ratio: float  # slots moved per product (routing streams + final layout) / nnz
+    slot_ratio: float  # slots the chain moves per product (routing streams + final layout) / nnz
+    # the product's layout: the chain folded into ``final.sell`` (fold_chain),
+    # derived here when not given
+    sell: Optional[SellMatrix] = None
+
+    def __post_init__(self):
+        if self.sell is None:
+            object.__setattr__(self, "sell", fold_chain(self.passes, self.final, self.shape))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -94,8 +113,11 @@ class RoutedMatrix:
         return self.final.device
 
     def astype(self, dtype: torch.dtype) -> "RoutedMatrix":
+        # the fold's column words stay; its values are the cast final layout's
+        final = self.final.astype(dtype)
+        sell = dataclasses.replace(final.sell, cols=self.sell.cols, shape=self.sell.shape)
         return dataclasses.replace(self, passes=tuple(p.astype(dtype) for p in self.passes),
-                                   final=self.final.astype(dtype))
+                                   final=final, sell=sell)
 
     def rmult(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops import spmv
@@ -109,6 +131,43 @@ class RoutedMatrix:
         """Densify by probing with the identity (test and debug sizes only)."""
         eye = torch.eye(self.shape[1], dtype=self.dtype, device=self.device)
         return self.rmult(eye)
+
+
+def fold_chain(passes: Tuple[StreamPass, ...], final: WSellMatrix,
+               shape: Tuple[int, int]) -> SellMatrix:
+    """The routed product's layout: ``final.sell`` (its values, chunk pointers
+    and row map shared) with each column word j, an index into the last
+    stream, rewritten to c(j), the column of x that stream slot carries
+    (``ops/stream_gather.py:stream_sources``, the chain run once over an
+    index table), the ``CONT`` bit kept; shape ``shape``, A's.
+
+    A product over it sums the chain's terms in the chain's order, each
+    ``v * x[c(j)]`` where the chain forms ``v * (1.0 * ... * 1.0 * x[c(j)])``:
+    bit for bit the chain's product.  What the fold changes is what no live
+    term reads: a slot the chain left as padding in its last stream reads
+    as column 0, so a padding slot of the layout (value 0) reads ``x[0]`` or
+    ``x[c(0)]`` where the chain read a padding 0, which differs only for a
+    non-finite x there (``0 * inf`` is NaN), as ``formats/sell.py`` says of
+    its own padding.  Raises ValueError when a pass holds a value other than
+    1 or 0 (it would not only move values), or when a live term, a slot
+    with a value or a column word not 0, reads a padding slot of the stream
+    (a sound chain never does: the chain would give 0 there)."""
+    from ..ops.stream_gather import stream_sources
+
+    for i, p in enumerate(passes):
+        if not bool(((p.vals == 0) | (p.vals == 1)).all()):
+            raise ValueError(f"routing pass {i} holds values other than 1 and 0: it does not "
+                             "only move values, so the chain cannot be folded")
+    s = final.sell
+    source = stream_sources(passes, int(shape[1]), s.device)
+    col, cont = column_words(s.cols)
+    c = source[col]
+    if bool(((c < 0) & ((s.vals != 0) | (s.cols != 0))).any()):
+        raise ValueError("a live term of the routed chain's final pass reads a padding slot "
+                         "of the last stream")
+    word = c.clamp_min(0) - cont.to(torch.int64) * CONT  # bit 31 of the int32 word
+    return dataclasses.replace(s, cols=word.to(torch.int32),
+                               shape=(int(shape[0]), int(shape[1])))
 
 
 # -- stream-pass packer ----------------------------------------------------------

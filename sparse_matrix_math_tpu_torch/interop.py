@@ -123,7 +123,9 @@ def reordered_from_numpy(inner, inner_csr, perm, iperm, shape, nnz) -> Reordered
 def routed_from_numpy(passes, final, shape, nnz, slot_ratio, device) -> RoutedMatrix:
     """A :class:`RoutedMatrix` from its routing passes, each a mapping with
     the planes ``vals``, ``meta`` and ``base`` and ``x_rows`` and
-    ``window_f``, and ``final``, a mapping for :func:`wsell_from_numpy`."""
+    ``window_f``, and ``final``, a mapping for :func:`wsell_from_numpy`.
+    The chain is folded for the product on ``device`` as ``routed_from_csr``
+    folds its own (``formats/rsell.py:fold_chain``)."""
     def stream_pass(f):
         return StreamPass(vals=torch.tensor(np.asarray(f["vals"]), device=device),
                           meta=torch.tensor(np.asarray(f["meta"], np.int32), device=device),

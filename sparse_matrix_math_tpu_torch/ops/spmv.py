@@ -14,8 +14,12 @@ reference's ``rMultOp`` family (include/sparse_matrix_math.h:1458-1515):
   kernel's gather).
 * W-SELL — :func:`~.wsell_spmv.wsell_spmv` (K7) for a vector,
   :func:`~.wsell_spmv.wsell_spmm` (K8) for an ``(n, k)`` panel.
-* R-SELL — one :func:`~.stream_gather.stream_gather` (K11) per routing pass,
-  then K7 over the routed stream; an ``(n, k)`` panel column by column.
+* R-SELL — the routed chain folded once per matrix into its final pass's
+  layout (``RoutedMatrix.sell``): :func:`~.wsell_spmv.routed_spmv`, one
+  launch of K7's kernel on x, for a vector, :func:`~.wsell_spmv.routed_spmm`
+  (K8's) for an ``(n, k)`` panel; bit for bit the chain that
+  :func:`routed_chain_rmult` runs (one :func:`~.stream_gather.stream_gather`,
+  K11, per routing pass, then K7 over the routed stream).
 * grid stencil — the matrix-free shifted-slice pass (formats/stencil.py),
   plain torch ops as the JAX package's is plain XLA.
 * HYB — the DIA part plus the CSR remainder; a ``ReorderedMatrix`` —
@@ -45,7 +49,8 @@ from . import wsell_spmv as _wsell
 _FORMATS = (CSRMatrix, DIAMatrix, ELLMatrix, HYBMatrix, WSellMatrix, ReorderedMatrix,
             RoutedMatrix, GridStencilMatrix)
 
-__all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator", "row_sum"]
+__all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn", "as_operator", "row_sum",
+           "routed_chain_rmult"]
 
 
 def row_sum(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
@@ -130,11 +135,21 @@ def _rmult_wsell(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
 
 @rmult.register
 def _rmult_routed(a: RoutedMatrix, x: torch.Tensor) -> torch.Tensor:
-    # the routing chain, one K11 launch per pass, then the final F-window
-    # W-SELL multiply-accumulate (K7) over the routed stream, whose length is
-    # the final layout's column count
+    # one launch over the folded layout (formats/rsell.py:fold_chain)
+    a, x = _promoted(a, x)
+    if x.ndim == 1:
+        return _wsell.routed_spmv(a, x)
+    return _wsell.routed_spmm(a, x)
+
+
+def routed_chain_rmult(a: RoutedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The routed chain itself, as the JAX package runs it: one K11 launch
+    per routing pass, then the final F-window W-SELL multiply-accumulate (K7)
+    over the routed stream, whose length is the final layout's column count;
+    a panel column by column.  The folded product's reference: ``rmult``
+    does not call it."""
     if x.ndim != 1:
-        return torch.stack([rmult(a, x[:, j]) for j in range(x.shape[1])], dim=1)
+        return torch.stack([routed_chain_rmult(a, x[:, j]) for j in range(x.shape[1])], dim=1)
     a, t = _promoted(a, x)
     for p in a.passes:
         t = _stream.stream_gather(p.base, p.meta, p.vals, t, x_rows=p.x_rows,

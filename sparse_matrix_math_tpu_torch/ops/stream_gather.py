@@ -32,7 +32,8 @@ import torch
 
 from ..formats.wsell import LANE, SLAB
 
-__all__ = ["stream_gather", "stream_gather_plain", "launches", "reset_launch_counts"]
+__all__ = ["stream_gather", "stream_gather_plain", "stream_sources", "launches",
+           "reset_launch_counts"]
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -110,3 +111,20 @@ def stream_gather(base: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
     _build.check(code, "stream_gather")
     launches["stream_gather"] += 1
     return out
+
+
+def stream_sources(passes, n_cols: int, device) -> torch.Tensor:
+    """The column of x that each slot of the last pass's stream carries, -1
+    where it carries padding: the chain run once over the index table
+    ``1 .. n_cols`` through :func:`stream_gather` (K11 on a card, one launch
+    per pass; the plain version on the CPU).  The planes are taken in
+    float64, where their 1.0 and 0 and every index below 2**53 are exact, so
+    a slot holds its source's index + 1, or 0 in padding.  Returns an int64
+    tensor of the last stream's length (``arange(n_cols)`` with no pass)."""
+    if n_cols >= 1 << 53:
+        raise ValueError(f"{n_cols} columns do not fit float64's exact integers")
+    t = torch.arange(1, n_cols + 1, dtype=torch.float64, device=device)
+    for p in passes:
+        t = stream_gather(p.base, p.meta, p.vals.to(torch.float64), t, x_rows=p.x_rows,
+                          window_f=p.window_f)
+    return t.to(torch.int64) - 1

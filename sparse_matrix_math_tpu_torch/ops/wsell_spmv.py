@@ -13,6 +13,13 @@ below and skips their padding:
   columns, each slot read once per launch and applied to every column of
   the launch; column j equals K7's product of column j bit for bit.
 
+* :func:`routed_spmv` and :func:`routed_spmm` — a ``RoutedMatrix``'s
+  product: the same kernel over the routed chain folded into its final
+  pass's layout (``RoutedMatrix.sell``, formats/rsell.py:fold_chain), one
+  launch on x for a vector (in place of one K11 launch per routing pass,
+  then K7), one per :data:`SPMM_COLUMNS` columns for a panel; counted
+  under their own names.
+
 Of the products, only :func:`wsell_spmm_plain` (and :func:`wsell_spmv_plain`)
 reads the W-SELL planes: the planes' product, the tests' oracle.
 
@@ -45,17 +52,19 @@ from __future__ import annotations
 
 import torch
 
+from ..formats.rsell import RoutedMatrix
+from ..formats.sell import SellMatrix
 from ..formats.wsell import LANE, SLAB, WSellMatrix
 from . import sell_spmv as _sell
 
-__all__ = ["wsell_spmv", "wsell_spmm", "wsell_spmv_plain", "wsell_spmm_plain",
-           "launches", "reset_launch_counts", "SPMM_COLUMNS"]
+__all__ = ["wsell_spmv", "wsell_spmm", "wsell_spmv_plain", "wsell_spmm_plain", "routed_spmv",
+           "routed_spmm", "launches", "reset_launch_counts", "SPMM_COLUMNS"]
 
 SPMM_COLUMNS = _sell.SPMM_COLUMNS  # columns per K8 launch
 _DTYPES = (torch.float32, torch.float64)
 
 # Kernel launches per wrapper, counted where the kernel is launched.
-launches = {"wsell_spmv": 0, "wsell_spmm": 0}
+launches = {"wsell_spmv": 0, "wsell_spmm": 0, "routed_spmv": 0, "routed_spmm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -111,9 +120,10 @@ def wsell_spmv_plain(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
 # -- wrappers ------------------------------------------------------------------
 
 
-def _check(a: WSellMatrix, x: torch.Tensor, ndim: int) -> None:
+def _check(a, x: torch.Tensor, ndim: int, what: str = "W-SELL planes") -> None:
+    """``a``: a WSellMatrix, or the SellMatrix a routed product reads."""
     if a.vals.device != x.device:
-        raise ValueError(f"W-SELL planes on {a.vals.device} but x on {x.device}")
+        raise ValueError(f"{what} on {a.vals.device} but x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     if a.dtype != x.dtype or x.dtype not in _DTYPES:
@@ -123,24 +133,46 @@ def _check(a: WSellMatrix, x: torch.Tensor, ndim: int) -> None:
         want = "(n_cols,)" if ndim == 1 else "(n_cols, k)"
         raise ValueError(f"x has shape {tuple(x.shape)}, expected {want} with "
                          f"n_cols={a.shape[1]}")
-    if not (a.vals.is_contiguous() and a.meta.is_contiguous() and x.is_contiguous()):
+    planes = (a.vals, a.cols) if isinstance(a, SellMatrix) else (a.vals, a.meta)
+    if not all(t.is_contiguous() for t in (*planes, x)):
         raise ValueError("planes and x must be contiguous")
+
+
+def _spmv(s: SellMatrix, x: torch.Tensor, what: str) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _sell.sell_spmv_plain(s, x)
+    y = _sell.launch(s, x, what)
+    launches[what] += 1
+    return y
+
+
+def _spmm(s: SellMatrix, xs: torch.Tensor, what: str) -> torch.Tensor:
+    if xs.device.type == "cpu":
+        return _sell.sell_spmm_plain(s, xs)
+    return _sell.spmm(s, xs, what, launches)
 
 
 def wsell_spmv(a: WSellMatrix, x: torch.Tensor) -> torch.Tensor:
     """K7: y = A @ x for a W-SELL matrix and a length-``n_cols`` x."""
     _check(a, x, 1)
-    if x.device.type == "cpu":
-        return _sell.sell_spmv_plain(a.sell, x)
-    y = _sell.launch(a.sell, x, "wsell_spmv")
-    launches["wsell_spmv"] += 1
-    return y
+    return _spmv(a.sell, x, "wsell_spmv")
 
 
 def wsell_spmm(a: WSellMatrix, xs: torch.Tensor) -> torch.Tensor:
     """K8: Y = A @ X for X of shape ``(n_cols, k)``; one launch per
     :data:`SPMM_COLUMNS` columns."""
     _check(a, xs, 2)
-    if xs.device.type == "cpu":
-        return _sell.sell_spmm_plain(a.sell, xs)
-    return _sell.spmm(a.sell, xs, "wsell_spmm", launches)
+    return _spmm(a.sell, xs, "wsell_spmm")
+
+
+def routed_spmv(a: RoutedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for a routed matrix: one launch over its folded layout."""
+    _check(a.sell, x, 1, "routed layout")
+    return _spmv(a.sell, x, "routed_spmv")
+
+
+def routed_spmm(a: RoutedMatrix, xs: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for a routed matrix and X of shape ``(n_cols, k)``: one
+    launch over its folded layout per :data:`SPMM_COLUMNS` columns."""
+    _check(a.sell, xs, 2, "routed layout")
+    return _spmm(a.sell, xs, "routed_spmm")

@@ -34,10 +34,10 @@ one payload (``dist_df64.py:154-158``)           traffic (world size 1); ``halo_
 non-wrapping ``ppermute`` of edge planes         ``open_halo_exchange(x_local, mesh) ->
 (``dist_multigrid.py:196-203``)                  (prev_last, next_first)``: zeros at the edge
                                                  ranks and at world size 1
-``shard_map`` of a per-shard routed chain,       each rank builds and runs only its own chain:
-passes padded and stacked to one shape           K11 per pass and K7 last over the
-(``dist_rsell.py:166-218``)                      all-gathered x, no padding to the shards'
-                                                 largest
+``shard_map`` of a per-shard routed chain,       each rank builds only its own chain, folded
+passes padded and stacked to one shape           at build (K11 once per pass): one launch
+(``dist_rsell.py:166-218``)                      over the all-gathered x, no padding to the
+                                                 shards' largest
 ``all_gather`` of the P (hi, lo) partials and    the same: ``all_gather`` of this rank's pair,
 a pairwise double-word tree                      then ``ops/df32.py:_df_pairwise_reduce`` in
 (``dist_df64.py:195-201``)                       rank order on every rank

@@ -13,10 +13,11 @@ chain of formats/rsell.py over its own row block instead:
 * the communication is one all-gather of x per product (a zero-locality
   pattern reads everywhere: the volume DistCSR's allgather mode moves);
 * the shard product is ``ops/spmv.py``'s routed product over the gathered
-  x: one K11 launch per routing pass (ops/stream_gather.py,
-  ``csrc/stream_gather.cu:stream_gather_kernel``), then K7 over the routed
-  stream (ops/wsell_spmv.py, ``csrc/sell_spmv.cu:sell_kernel``) on a CUDA
-  device; their plain versions on the CPU;
+  x: one launch of ``csrc/sell_spmv.cu:sell_kernel`` over the shard's chain
+  folded into its final layout (``ops/wsell_spmv.py:routed_spmv``; the fold
+  runs the chain once per shard at build, one K11 launch per routing pass,
+  ``csrc/stream_gather.cu:stream_gather_kernel``) on a CUDA device; its
+  plain version on the CPU;
 * the build pins one global mixed-radix plan and leaf width for every
   shard (``_plan_digits`` from the global n and nnz), the final pass at
   ``nway`` 4 with no gain threshold, as the JAX package does
@@ -144,8 +145,8 @@ def distribute_routed(
 
 
 def _local_routed_spmv(local: RoutedMatrix, x_local, *, mesh: RowMesh):
-    """This shard's rows of ``A @ x``: the all-gather of x, then the chain
-    (K11 per pass, K7 last)."""
+    """This shard's rows of ``A @ x``: the all-gather of x, then one launch
+    over the folded chain."""
     return rmult(local, all_gather(x_local, mesh))
 
 

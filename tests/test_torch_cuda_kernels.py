@@ -24,6 +24,7 @@ from sparse_matrix_math_tpu_torch.ops import sell_spmv as S
 from sparse_matrix_math_tpu_torch.ops import stream_gather as R
 from sparse_matrix_math_tpu_torch.ops import trisweep as T
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
+from sparse_matrix_math_tpu_torch.ops.spmv import routed_chain_rmult
 from sparse_matrix_math_tpu_torch.precond import PaddedSGS, PaddedTriPair
 from sparse_matrix_math_tpu_torch.solvers.ir_df64 import hi_operator
 
@@ -721,13 +722,24 @@ def test_stream_gather_matches_plain(cuda_device, name, gen, kw, dtype):
         assert torch.equal(out, R.stream_gather_plain(p.base, p.meta, p.vals, t,
                                                       x_rows=p.x_rows, window_f=p.window_f))
         t = out
-    n11, n7 = R.launches["stream_gather"], W.launches["wsell_spmv"]
+    # the product: one launch over the folded layout, no K11, no K7; bit for
+    # bit its plain version and the chain (K11 per pass, then K7)
+    n11, n7, nr = (R.launches["stream_gather"], W.launches["wsell_spmv"],
+                   W.launches["routed_spmv"])
     y = ra @ x
     torch.cuda.synchronize()
-    assert R.launches["stream_gather"] == n11 + len(ra.passes)
-    assert W.launches["wsell_spmv"] == n7 + 1
+    assert R.launches["stream_gather"] == n11 and W.launches["wsell_spmv"] == n7
+    assert W.launches["routed_spmv"] == nr + 1
+    assert bits_equal(y, S.sell_spmv_plain(ra.sell, x))
     assert bits_equal(y, S.sell_spmv_plain(ra.final.sell, t))
     assert torch.equal(y, W.wsell_spmv_plain(ra.final, t))
+    assert bits_equal(y, routed_chain_rmult(ra, x))
+    xs = torch.as_tensor(np.random.default_rng(1).standard_normal((csr.shape[1], 5)),
+                         device=cuda_device).to(dtype)
+    ys = ra @ xs
+    assert W.launches["routed_spmm"] >= 1
+    for j in range(5):
+        assert bits_equal(ys[:, j], ra @ xs[:, j].contiguous())
     ref = csr @ x
     tol = 1e-5 if dtype == torch.float32 else 1e-13
     assert (y - ref).abs().max() <= tol * ref.abs().max()
@@ -1027,23 +1039,26 @@ def test_generic_bicgstab_sgs_repeats(cuda_device, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-def test_dist_rsell_shard_is_k11_then_k7(nccl_mesh, dtype):
-    """One dist_routed_spmv shard product on the card is one K11 launch per
-    routing pass, then one K7 launch, bit for bit the plain versions of the
-    same chain; and a routed solve at world size 1 ends as the single-device
-    solve on the card does."""
+def test_dist_rsell_shard_is_one_folded_launch(nccl_mesh, dtype):
+    """One dist_routed_spmv shard product on the card is one launch over the
+    shard's folded chain (no K11, no K7), bit for bit the plain versions of
+    the same chain; and a routed solve at world size 1 ends as the
+    single-device solve on the card does."""
     from sparse_matrix_math_tpu_torch import parallel as par
 
     csr = smm.uniform_random_csr(20_000, per_row=5, dtype=dtype, device="cpu")
+    k11 = R.launches["stream_gather"]
     d = par.distribute_routed(csr, nccl_mesh)
+    assert R.launches["stream_gather"] == k11 + d.n_passes  # the fold, once
     assert d.local.final.vals.device.type == "cuda" and d.n_passes >= 1
     x = np.random.default_rng(0).standard_normal(csr.shape[0])
     xl = par.distribute_vector(x, d).to(dtype)
-    k11, k7 = R.launches["stream_gather"], W.launches["wsell_spmv"]
+    k11, k7, nr = (R.launches["stream_gather"], W.launches["wsell_spmv"],
+                   W.launches["routed_spmv"])
     y = par.dist_routed_spmv(d, xl)
     torch.cuda.synchronize()
-    assert R.launches["stream_gather"] == k11 + d.n_passes
-    assert W.launches["wsell_spmv"] == k7 + 1
+    assert R.launches["stream_gather"] == k11 and W.launches["wsell_spmv"] == k7
+    assert W.launches["routed_spmv"] == nr + 1
     t = xl
     for p in d.local.passes:
         t = R.stream_gather_plain(p.base, p.meta, p.vals, t, x_rows=p.x_rows,

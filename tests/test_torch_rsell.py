@@ -14,11 +14,17 @@ package.
   vector and a panel.  The routing is exact and the final W-SELL pass sums in
   the kernel's order, so only the XLA CPU backend's rounding can differ: f32
   to a relative 1e-6 and f64 to 1e-12 of the largest |y|.
+* Fold: ``rmult`` reads the chain folded into the final pass's layout
+  (``RoutedMatrix.sell``), and equals the chain itself
+  (``ops/spmv.py:routed_chain_rmult``, K11's and K7's plain versions) bit
+  for bit, vector and panel; the fold's column words are columns of x with
+  the final layout's ``CONT`` bits; every constructor carries the same fold.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel is checked by
 tests/test_torch_cuda_kernels.py on a card.
 """
 
+import dataclasses
 import shutil
 
 import jax.numpy as jnp
@@ -40,10 +46,13 @@ from sparse_matrix_math_tpu_torch import interop, native
 from sparse_matrix_math_tpu_torch.formats.rsell import (
     RoutedMatrix,
     _plan_digits,
+    fold_chain,
     routed_from_csr,
     try_routed_from_csr,
 )
+from sparse_matrix_math_tpu_torch.formats.sell import CONT
 from sparse_matrix_math_tpu_torch.ops import stream_gather as S
+from sparse_matrix_math_tpu_torch.ops.spmv import routed_chain_rmult
 from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 from test_torch_wsell import port_csr, wsell_fields
 from torch_layout_code import jax_native_loaded, same_layout_code  # noqa: F401  (autouse)
@@ -360,6 +369,114 @@ def test_nonsymmetric_solvers_over_routed(method):
     assert res.status == 0
     assert float(torch.linalg.norm(b - tcsr @ res.x)) <= 1e-9
     assert float((res.x - x_true).abs().max()) < 1e-8
+
+
+# -- the folded product ------------------------------------------------------------------
+
+
+def bits_equal(a, b):
+    """Bit for bit, the sign of a zero included."""
+    word = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(word), b.view(word))
+
+
+def assert_fold(tra):
+    """The fold's layout is the final pass's with column words of x: the
+    values, chunk pointers and row map shared, the ``CONT`` bits kept."""
+    s, f = tra.sell, tra.final.sell
+    assert s.shape == tra.shape and s.nnz == f.nnz == tra.nnz
+    assert s.vals is f.vals and s.chunk_ptr is f.chunk_ptr and s.row_of is f.row_of
+    assert s.cols.dtype == torch.int32 and s.cols.shape == f.cols.shape
+    assert torch.equal(s.cols < 0, f.cols < 0)
+    col = s.cols & (CONT - 1)
+    assert col.numel() == 0 or int(col.max()) < tra.shape[1]
+
+
+def assert_fold_is_chain(tra, x):
+    before = (dict(S.launches), dict(W.launches))
+    y = tra @ x
+    assert bits_equal(y, routed_chain_rmult(tra, x))
+    assert (S.launches, W.launches) == before  # plain versions count nothing
+    return y
+
+
+@pytest.mark.parametrize("kw", [{}, dict(window_f=4, leaf_slabs=1, _digits=(2, 3))],
+                         ids=["default", "two_passes_wf4"])
+def test_fold_is_the_chain(kw, dtype):
+    """On the generators of test_rmult_matches_jax: the folded product equals
+    the chain bit for bit, for a seeded x, for ones and for a panel."""
+    _, jra, tra = _chain_pair(dtype, **kw)
+    assert_fold(tra)
+    rng = np.random.default_rng(1)
+    assert_fold_is_chain(tra, torch.from_numpy(rng.standard_normal(jra.shape[1]).astype(dtype)))
+    assert_fold_is_chain(tra, torch.ones(jra.shape[1], dtype=tra.dtype))
+    xs = torch.from_numpy(rng.standard_normal((jra.shape[1], 11)).astype(dtype))
+    assert_fold_is_chain(tra, xs)  # two panel launches' worth of columns
+    ys = tra @ xs
+    for j in range(11):
+        assert bits_equal(ys[:, j], tra @ xs[:, j].contiguous())
+
+
+@pytest.mark.parametrize("make", [_rectangular, _power_law], ids=["rectangular", "power_law"])
+def test_fold_is_the_chain_rectangular_and_power_law(make, dtype):
+    jcsr = make()
+    tra = routed_from_csr(port_csr(jcsr), max_slot_ratio=99.0)  # float32 entries
+    if dtype == np.float64:
+        tra = tra.astype(torch.float64)
+    assert_fold(tra)
+    rng = np.random.default_rng(4)
+    assert_fold_is_chain(tra, torch.from_numpy(rng.standard_normal(jcsr.shape[1]).astype(dtype)))
+    assert_fold_is_chain(tra, torch.from_numpy(
+        rng.standard_normal((jcsr.shape[1], 3)).astype(dtype)))
+
+
+def test_product_runs_no_routing_pass(monkeypatch):
+    """rmult of a routed matrix reads only the folded layout: no routing
+    pass, no K7 over a stream."""
+    _, jra, tra = _chain_pair(np.float32, n=3_000)
+
+    def refuse(*a, **k):
+        raise AssertionError("a routing pass ran inside a product")
+
+    monkeypatch.setattr(S, "stream_gather", refuse)
+    monkeypatch.setattr(W, "wsell_spmv", refuse)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(3_000).astype(np.float32))
+    assert tra.rmult(x).shape == (3_000,)
+    assert smm.rmult(tra, torch.stack([x, x], 1)).shape == (3_000, 2)
+
+
+def test_fold_refuses_a_live_term_on_padding():
+    """A chain whose last stream holds padding where a live term of the final
+    pass reads raises; so does a pass that scales what it moves."""
+    tra = routed_from_csr(port_csr(jax_uniform_random(6_000, per_row=4, seed=5,
+                                                      dtype=np.float32)), max_slot_ratio=99.0)
+    last = tra.passes[-1]
+    holes = last.vals.clone()
+    holes.view(-1)[holes.view(-1).nonzero()[:5]] = 0  # five real slots made padding
+    broken = tra.passes[:-1] + (dataclasses.replace(last, vals=holes),)
+    with pytest.raises(ValueError, match="reads a padding slot"):
+        RoutedMatrix(passes=broken, final=tra.final, shape=tra.shape, nnz=tra.nnz,
+                     slot_ratio=tra.slot_ratio)
+    scaled = tra.passes[:-1] + (dataclasses.replace(last, vals=last.vals * 2),)
+    with pytest.raises(ValueError, match="other than 1 and 0"):
+        fold_chain(scaled, tra.final, tra.shape)
+
+
+def test_every_constructor_carries_the_same_fold(dtype):
+    """routed_from_csr, the interop chain from the JAX package's arrays and
+    astype (either way) carry one fold: the same column words."""
+    jcsr, jra, tra = _chain_pair(dtype)
+    built = routed_from_csr(port_csr(jcsr), max_slot_ratio=99.0)
+    assert torch.equal(built.sell.cols, tra.sell.cols)
+    assert torch.equal(built.sell.chunk_ptr, tra.sell.chunk_ptr)
+    other = torch.float32 if dtype == np.float64 else torch.float64
+    cast = tra.astype(other)
+    assert cast.sell.cols is tra.sell.cols and cast.sell.dtype == other
+    assert cast.sell.vals is cast.final.sell.vals
+    assert_fold(cast)
+    assert torch.equal(cast.astype(tra.dtype).sell.vals, tra.sell.vals)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(jra.shape[1])).to(other)
+    assert_fold_is_chain(cast, x)
 
 
 # -- the native bindings -----------------------------------------------------------------
