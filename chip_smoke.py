@@ -16,14 +16,20 @@ timings: the DIA SpMV kernels (K2/K3 from a captured CUDA graph, with the
 kernel and tile the rule of ``ops/dia_spmv.py:staged_plan`` takes: the
 staged kernel or one thread per row), then the fused SGS (K4) and IC(0)/ILU(0) (K5)
 sweep applies at 1, 2 and 4 sweeps, each with the variant the rule of
-``ops/trisweep.py:window_tile`` takes (halo-window kernels or the
-large-reach per-sweep kernels), timed from a captured CUDA graph.  Phase B resets the launch counters,
+``ops/trisweep.py:variant_of`` takes (halo-window kernels, or the
+large-reach ring kernel), timed from a captured CUDA graph.  Phase B resets the launch counters,
 then solves at full width through the public entry points on a CUDA
 ``CSRMatrix`` (auto-route to DIA, padded solve, kernel matvec), checks each
 result against an independent host residual computed with scipy, and checks
 the counters.  Phase P does the same for the preconditioned path: SGS,
 IC(0) and ILU(0) built by ``from_matrix(csr, method="jacobi", sweeps=4)``,
-every apply one launch of K4 or K5.  Phase W does both for the
+every apply one launch of K4 or K5.  Phase Q does the same on 3-D systems,
+where every apply takes K4/K5's ring kernel: ``solve`` with CG + SGS(4) on
+``poisson_3d(243)`` f32, PCG + IC0(4) on ``poisson_3d_27pt(128)`` f32 and
+BiCGStab + SGS(4) on ``poisson_3d(243)`` f64, each held to the host's
+residual and to the same solve over the plain applies (status, iterations,
+``floor_hit``, x bit for bit where it repeats), with wall and device
+microseconds per iteration.  Phase W does both for the
 general-pattern path: the JAX bench's unstructured system
 (``laplace_3d_jittered(113)``, 17.5M nnz) routed to W-SELL, its IC(0)
 strict factors in W-SELL, a shuffled ``poisson_2d(1414)`` routed through
@@ -188,7 +194,8 @@ def median_ms(fn, samples: int = 11, calls: int = 20) -> float:
 
 
 def phase_a(smm, K, torch, dev):
-    """Kernels against their plain versions."""
+    """Kernels against their plain versions.  Returns the readings and the
+    3-D systems (float64 CSR and DIA)."""
     print("== phase A: kernels against plain versions")
     systems = [
         ("poisson_2d(1414)", smm.poisson_2d, (1414,)),
@@ -200,6 +207,7 @@ def phase_a(smm, K, torch, dev):
     stats = {k: {"err": 0.0} for k in ("dia_spmv", "dia_spmv_padded", "sgs_apply",
                                         "tri_pair_apply")}
     stats["dia_spmv_padded"]["cases"] = {}
+    kept = {}  # the 3-D systems, for phase Q
     for label, make, args in systems:
         t0 = time.perf_counter()
         csr = make(*args, device=dev)
@@ -281,9 +289,11 @@ def phase_a(smm, K, torch, dev):
                 require(K.launches[kname] > before[kname], f"{kname} {name}: launch counter rose")
             del a, p, x, xp
         sweep_cases(smm, torch, dev, label, csr, dia64, stats)
+        if label.startswith("poisson_3d"):  # phase Q solves them again
+            kept[label] = (csr, dia64)
         del csr, dia64
         torch.cuda.empty_cache()
-    return stats
+    return stats, kept
 
 
 def apply_bytes(pre, sgs: bool, itemsize: int) -> int:
@@ -296,19 +306,20 @@ def apply_bytes(pre, sgs: bool, itemsize: int) -> int:
 
 def traffic_bytes(pre, sgs: bool, itemsize: int, variant: str) -> int:
     """Device bytes one apply moves by a design's traffic model.  The
-    per-sweep kernels (the large-reach variant, and K4/K5 before the window
-    kernels): per direction the init step reads the rhs and the inverse
-    diagonal and writes x, and each of the sweeps - 1 sweeps reads the
-    strict diagonals, the rhs, the inverse diagonal and x and writes x;
-    SGS's middle scale also reads D and writes the scaled rhs.  The window
-    kernels: per direction the rhs, the inverse diagonal, the strict
-    diagonals (where there is a sweep) and, backward in SGS, D are read once
-    and x is written once; the forward result is read back by the backward
-    launch (halo rows read again by a neighbouring tile not counted)."""
+    per-sweep kernels (the large-reach variant until the ring kernel, and
+    K4/K5 before the window kernels): per direction the init step reads the
+    rhs and the inverse diagonal and writes x, and each of the sweeps - 1
+    sweeps reads the strict diagonals, the rhs, the inverse diagonal and x
+    and writes x; SGS's middle scale also reads D and writes the scaled rhs.
+    The window and ring kernels: per direction the rhs, the inverse
+    diagonal, the strict diagonals (where there is a sweep) and, backward in
+    SGS, D are read once and x is written once; the forward result is read
+    back by the backward launch (halo rows read again by a neighbouring
+    tile, and the ring kernel's levels in L2, not counted)."""
     per_row = 0
     for p, mid in ((pre.p_lower, False), (pre.p_upper, sgs)):
         nd = 0 if p is None else len(p.offsets)
-        if variant == "window":
+        if variant in ("window", "ring"):
             per_row += 3 + (nd if nd and pre.sweeps > 1 else 0) + mid
         else:
             per_row += 3 + 2 * mid + (0 if p is None else (pre.sweeps - 1) * (nd + 4))
@@ -415,6 +426,11 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
                     stats[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                         library_ms=None, wrapper_ms=wrapper_ms,
                                         traffic_bound_ms=bound_ms(moved))
+                if variant != "window":  # the large-reach shapes' own figures
+                    stats[kname].setdefault("large_reach", {})[f"{kind} {label} {name}"] = {
+                        "variant": variant, "ms": ms, "wrapper_ms": wrapper_ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "traffic_bound_ms": bound_ms(moved)}
             del base, rp, z, z_ref
         del pre64
 
@@ -634,6 +650,164 @@ def phase_p(smm, K, T, loop, torch, dev):
     for kname in ("dia_spmv_padded", "sgs_apply", "tri_pair_apply"):
         require(counts[kname] > 0, f"preconditioned path launched {kname} {counts[kname]} times")
     return counts
+
+class plain_applies:
+    """Inside the block, the padded preconditioners apply through the plain
+    versions of K4/K5 (``sgs_apply_plain``, ``tri_pair_apply_plain``) on the
+    card: the same solve as the kernel's, without the kernel."""
+
+    def __init__(self, T):
+        from sparse_matrix_math_tpu_torch.precond import padded_sgs, padded_tri
+
+        self.swaps = [(padded_sgs, "sgs_apply_fused", T.sgs_apply_plain),
+                      (padded_tri, "tri_pair_apply_fused", T.tri_pair_apply_plain)]
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.swaps]
+        for mod, name, fn in self.swaps:
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.swaps, self.saved):
+            setattr(mod, name, fn)
+
+
+class counted_applies:
+    """Counts the padded preconditioner applications inside the block (each
+    one call of the K4/K5 wrapper) and the variants they took."""
+
+    def __init__(self, T, dev):
+        from sparse_matrix_math_tpu_torch.precond import padded_sgs, padded_tri
+
+        self.T, self.dev, self.calls, self.variants = T, dev, 0, set()
+        self.swaps = [(padded_sgs, "sgs_apply_fused"), (padded_tri, "tri_pair_apply_fused")]
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.swaps]
+        for (mod, name), fused in zip(self.swaps, self.saved):
+            def wrapped(pre, rp, fused=fused):
+                self.calls += 1
+                self.variants.add(self.T.variant(pre, self.dev))
+                return fused(pre, rp)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.swaps, self.saved):
+            setattr(mod, name, fn)
+
+
+def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
+    """The 3-D preconditioned path at full width: every apply of SGS(4) or
+    IC0(4) on a 3-D stencil takes the ring kernel (the large-reach variant of
+    K4/K5), one launch per application.  Through the public entry point
+    ``solve`` on phase A's systems (``kept``): CG + SGS(4) on
+    ``poisson_3d(m7)`` f32 (a DIA matrix, so the SGS is built with 4 sweeps,
+    ``solvers/api.py:109``), PCG + IC0(4) on ``poisson_3d_27pt(m27)`` f32
+    (the factors of the float32 matrix, passed as an object) and BiCGStab +
+    SGS(4) on ``poisson_3d(m7)`` f64; b = A @ ones, epsilon 1e-4 ||b|| (f32) and
+    1e-8 ||b|| (f64).  The launch counters are reset just before the solves.
+    Each solve is held to the host's residual (solve_and_check's contract),
+    then to the same solve with the plain applies on the card: the same
+    status, iterations and ``floor_hit``, and x bit for bit where the
+    kernel's solve repeats bit for bit; then timed: wall and device µs per
+    iteration under torch.profiler, the sweeps' share beside K3's.  Returns
+    the phase's readings and the K4/K5 launches of its measured solves."""
+    from sparse_matrix_math_tpu_torch.precond import PaddedSGS
+
+    print("== phase Q: 3-D preconditioned solves at full width (the ring kernel)")
+    t_start = time.perf_counter()
+    p7d, a7d = kept[f"poisson_3d({m7})"]
+    p27d, a27d = kept[f"poisson_3d_27pt({m27})"]
+    kept.clear()
+    f32 = torch.float32
+    p27 = p27d.astype(f32)
+    sgs4 = dict(preconditioner="sgs")
+    t0 = time.perf_counter()
+    # the factors once (the host's factorization of the float32 matrix),
+    # passed to solve as an object
+    ic4 = dict(preconditioner=smm.get_preconditioner(p27, "ic0", method="jacobi", sweeps=4))
+    print(f"IC0(4) factors of poisson_3d_27pt({m27}) f32 in {time.perf_counter() - t0:.2f} s")
+    cases = [(f"cg+sgs(4) poisson_3d({m7}) f32", "cg", p7d.astype(f32), a7d.astype(f32), sgs4,
+              1e-4, "sgs_apply"),
+             (f"cg+ic0(4) poisson_3d_27pt({m27}) f32", "cg", p27, a27d.astype(f32), ic4, 1e-4,
+              "tri_pair_apply"),
+             (f"bicgstab+sgs(4) poisson_3d({m7}) f64", "bicgstab", p7d, a7d, sgs4, 1e-8,
+              "sgs_apply")]
+    del p7d, a7d, p27d, a27d, p27
+    groups = [("sweeps (ring_kernel)", ("ring_kernel",)),
+              ("K3 (dia_staged_kernel / dia_padded_kernel)", ("dia_staged_kernel",
+                                                              "dia_padded_kernel"))]
+    out, launches = {}, {"sgs_apply": 0, "tri_pair_apply": 0}
+    for label, method, csr, a, kw, rel, kname in cases:
+        b = a @ torch.ones(csr.shape[0], dtype=csr.dtype, device=dev)
+        eps = rel * float(torch.linalg.norm(b.double()))
+        skw = dict(kw, method=method, epsilon=eps, max_iterations=5000, auto_escalate=False)
+
+        def run(skw=skw, a=a, b=b):
+            return smm.solve(a, b, **skw)
+
+        K.reset_launch_counts()
+        T.reset_launch_counts()
+        with counted_applies(T, dev) as applies:
+            res, wall = timed_solve(torch, run)
+        n_apply = T.launches[kname]
+        require(applies.calls == n_apply and n_apply >= res.iterations,
+                f"{label}: one {kname} launch per preconditioner application ({n_apply} "
+                f"launches, {applies.calls} applications, {res.iterations} iterations)")
+        require(applies.variants == {"ring"}, f"{label}: every apply took the ring kernel "
+                f"({sorted(applies.variants)})")
+        res2, wall2 = timed_solve(torch, run)
+        repeats = res2.iterations == res.iterations and bits_equal(torch, res2.x, res.x)
+        with plain_applies(T):
+            plain, plain_wall = timed_solve(torch, run)
+        status, pstatus = res.status_enum(), plain.status_enum()
+        precond = None
+        if method == "bicgstab":  # BiCGStab reports the preconditioned residual's norm
+            precond = plain_precond(T, PaddedSGS.from_dia(a, sweeps=4), a)
+        true64, same = host_residuals(csr, b, res.x, precond)
+        reported = float(res.residual_norm)
+        ref, ref_name = (true64, "float64") if csr.dtype == torch.float64 else (same, "float32")
+        print(f"{label}: {status.name} in {res.iterations} iterations (floor_hit "
+              f"{res.floor_hit}), residual_norm {reported:.6e}, host f64 {true64:.6e}, host "
+              f"same-precision {same:.6e}, eps {eps:.6e}; wall {wall:.3f} s then "
+              f"{wall2:.3f} s; {n_apply} {kname} launches (ring); repeats bit for bit "
+              f"{repeats}; plain applies: {pstatus.name} in {plain.iterations} "
+              f"(floor_hit {plain.floor_hit}), {plain_wall:.3f} s")
+        require(status == smm.SolverStatus.SUCCESS, f"{label}: SUCCESS")
+        require(bool(torch.isfinite(res.x).all()) and tuple(res.x.shape) == (csr.shape[0],),
+                f"{label}: x finite, shape {tuple(res.x.shape)}")
+        require(abs(reported - ref) <= 0.01 * ref and ref <= 1.01 * eps,
+                f"{label}: residual_norm within 1% of the host {ref_name} residual, which is "
+                f"below eps (float64 {true64:.6e})")
+        require(pstatus == status and plain.iterations == res.iterations
+                and plain.floor_hit == res.floor_hit,
+                f"{label}: the status, iterations and floor_hit of the same solve over the "
+                "plain applies")
+        if repeats:
+            require(bits_equal(torch, plain.x, res.x),
+                    f"{label}: x bit for bit the plain applies' solve")
+        win, dev_us, dev_n = device_breakdown(torch, run, groups)
+        launches[kname] += T.launches[kname]  # the measured runs': timed, repeat, profiled
+        its = max(win.iterations, 1)
+        per_it = {k: v / its for k, v in dev_us.items()}
+        total = sum(per_it.values())
+        print(f"  {label} under torch.profiler: {win.iterations} iterations, device "
+              f"{total:.1f} us per iteration in {dev_n / its:.1f} kernels: "
+              + ", ".join(f"{k} {v:.1f} ({100 * v / total:.0f}%)" for k, v in per_it.items())
+              + f"; wall {1e6 * wall2 / max(res2.iterations, 1):.1f} us per iteration")
+        out[label] = {"status": status.name, "iterations": res.iterations,
+                      "floor_hit": bool(res.floor_hit), "host_f64": true64,
+                      "applies": n_apply, "repeats": repeats, "plain_iterations": plain.iterations,
+                      "wall_us_per_it": 1e6 * wall2 / max(res2.iterations, 1),
+                      "device_us_per_it": total, "device_us_per_it_by": per_it,
+                      "kernels_per_it": dev_n / its}
+        del a, b, res, res2, plain, csr
+        torch.cuda.empty_cache()
+    print(f"phase Q launches (measured runs): {launches}; phase Q took "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return out, launches
+
 
 def wsell_bytes(ws, k: int, itemsize: int, per_vreg: int = 8) -> int:
     """K7/K8's bytes model: each slot's value and meta word, ``per_vreg``
@@ -2236,8 +2410,10 @@ def phase_g(smm, K, loop, torch, dev, dia_solves, nx: int = 1414, m3: int = 243)
     tail = (("cg", lambda: smm.cg(pdia, b, epsilon=eps, max_iterations=20000)),
             ("chebyshev", lambda: smm.chebyshev(pdia, b, epsilon=eps, max_iterations=20000,
                                                 eig_bounds=bounds)),
+            # its recurrence does not reach eps at this size in float32: 5000
+            # steps read the same status and per-step time as 20000 (15.8 s)
             ("cg_pipelined", lambda: smm.cg_pipelined(pdia, b, epsilon=eps,
-                                                      max_iterations=20000)),
+                                                      max_iterations=5000)),
             ("deflated_cg", lambda: smm.deflated_cg(pdia, b, epsilon=eps, max_iterations=20000,
                                                     deflation_basis=basis)))
     for name, solve in tail:
@@ -2669,24 +2845,24 @@ def phase_c(smm, torch, dev):
 _WINDOW = 256
 
 
-def single_case(torch, ref, csr, b, groups):
+def single_case(torch, ref, csr, b, groups, window=_WINDOW):
     """The single-device solve that the distributed solves of one system are
     held against, read once: ``ref(m)`` solves with ``max_iterations=m``
     (None: the phase's cap), timed once by the host clock, then a
-    ``_WINDOW``-iteration solve under torch.profiler."""
+    ``window``-iteration solve under torch.profiler."""
     res, wall = timed_solve(torch, lambda: ref(None))
-    win, dev_us, dev_n = device_breakdown(torch, lambda: ref(_WINDOW), groups)
+    win, dev_us, dev_n = device_breakdown(torch, lambda: ref(window), groups)
     return {"res": res, "wall": wall, "window_its": max(win.iterations, 1),
             "dev_us": dev_us, "dev_n": dev_n, "host64": host_residuals(csr, b, res.x)[0]}
 
 
 def dist_case(smm, torch, par, label, d, dist, single, csr, b, eps, band_of, groups, *,
-              repeat=False):
+              repeat=False, window=_WINDOW):
     """One distributed solve at world size 1 against ``single`` (the
     :func:`single_case` reading of the same system), through the public
     entry point: ``dist(m)`` solves with ``max_iterations=m`` (None: the
     phase's cap).  The full solve is timed once by the host clock and its
-    collectives counted, then a ``_WINDOW``-iteration solve is read under
+    collectives counted, then a ``window``-iteration solve is read under
     torch.profiler.  Holds the status, the iterations within
     ``band_of(the single-device iterations)``, an interval, and the host's
     float64 true residual (at most 1.01 eps for a float64 SUCCESS; for
@@ -2700,7 +2876,7 @@ def dist_case(smm, torch, par, label, d, dist, single, csr, b, eps, band_of, gro
     res, wall = timed_solve(torch, lambda: dist(None))
     coll = dict(M.collectives)
     by_count = {}
-    win, dev_us, dev_n = device_breakdown(torch, lambda: dist(_WINDOW), groups, by_count)
+    win, dev_us, dev_n = device_breakdown(torch, lambda: dist(window), groups, by_count)
     one, one_wall, ref_us, ref_n = single["res"], single["wall"], single["dev_us"], single["dev_n"]
     x = par.collect(res.x, d)
     require(x.shape == (csr.shape[0],) and bool(np.isfinite(x).all()),
@@ -2907,11 +3083,13 @@ def phase_x_modules(smm, W, torch, par, mesh, dev, groups, routed, n_r: int = 2_
     label = f"dist_mg_solve pcg poisson_3d({m3}) f32 eps 1e-4 ||b||"
     print(f"{label}: distribute_multigrid {time.perf_counter() - t3:.2f} s, "
           f"{dmg.n_levels_dist} distributed levels of {len(mg.dims)}, m0s {dmg.m0s}")
+    # profiled over 2 iterations (3 V-cycles, ~17 K launches each), not the
+    # whole solve: the profiler's events, not the solve, set this case's time
     single = single_case(torch, lambda m: smm.cg(p3, b3, preconditioner=mg, **(
-        mkw if m is None else dict(mkw, max_iterations=m))), p3, b3, groups)
+        mkw if m is None else dict(mkw, max_iterations=m))), p3, b3, groups, window=2)
     out[label] = dist_case(smm, torch, par, label, dmg, lambda m: par.dist_mg_solve(
         dmg, b3, solver="pcg", **(mkw if m is None else dict(mkw, max_iterations=m))),
-        single, p3, b3, eps3, band(0.0, 1), groups)
+        single, p3, b3, eps3, band(0.0, 1), groups, window=2)
     out[label]["same_iterations"] = out[label]["iterations"] == out[label]["single_iterations"]
     del p3, b3, mg, dmg
     torch.cuda.empty_cache()
@@ -3013,15 +3191,16 @@ def phase_x(smm, W, torch, dev, dia_solves, routed=None, nx: int = 1414, m: int 
         # BiCGStab + SGS(4): max(3, 5%) around the single-device count.  Its
         # count moves with any change of rounding (the products' summation
         # order, b's last bit: tools/dist_probe.py), so the distributed
-        # solve must repeat itself on the same b, bit for bit.
+        # solve must repeat itself on the same b, bit for bit.  Profiled over
+        # 64 iterations: the distributed solve launches ~240 kernels in each.
         label = f"dist_solve bicgstab+sgs(4) poisson_2d({nx}) f64"
         b64 = b[torch.float64]
         out[label] = dist_case(
             smm, torch, par, label, d64,
             plain(par.dist_solve, d64, b64, f64, solver="bicgstab", preconditioner=dsgs),
             single_case(torch, plain(smm.bicgstab, p64, b64, f64, preconditioner=sgs), p64, b64,
-                        groups),
-            p64, b64, 1e-8, band(0.05), groups, repeat=True)
+                        groups, window=64),
+            p64, b64, 1e-8, band(0.05), groups, repeat=True, window=64)
         for name in ("f32", "f64"):
             single = f"cg poisson_2d({nx}) {name}"
             print(f"  phase B's {single}: {dia_solves[single][0]} iterations; this phase's "
@@ -3141,17 +3320,27 @@ def main() -> int:
     print(built)
     require(native.available(), "native factorization and W-SELL layout library built and loaded")
 
-    stats = phase_a(smm, K, torch, dev)
-    counts, dia_solves = phase_b(smm, K, _loop, torch, dev)
+    took = {}  # each phase's seconds
+
+    def phase(name, run, *args):
+        t0 = time.perf_counter()
+        out = run(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    stats, kept = phase("A", phase_a, smm, K, torch, dev)
+    counts, dia_solves = phase("B", phase_b, smm, K, _loop, torch, dev)
     cg_f64_its = dia_solves["cg poisson_2d(1414) f64"][0]
-    pcounts = phase_p(smm, K, T, _loop, torch, dev)
-    wstats, wcounts, wsys = phase_w(smm, _loop, torch, dev, cg_f64_its)
-    mstats, mcounts = phase_m(smm, _loop, torch, dev, wsys)
+    pcounts = phase("P", phase_p, smm, K, T, _loop, torch, dev)
+    qstats, qlaunch = phase("Q", phase_q, smm, K, T, torch, dev, kept)
+    print("PHASE_Q " + json.dumps(qstats))
+    wstats, wcounts, wsys = phase("W", phase_w, smm, _loop, torch, dev, cg_f64_its)
+    mstats, mcounts = phase("M", phase_m, smm, _loop, torch, dev, wsys)
     del wsys
-    dstats, dcounts = phase_d(smm, _loop, torch, dev)
-    rstats, rcounts = phase_r(smm, _loop, torch, dev, dia_solves)
-    hstats = phase_h(smm, K, _loop, torch, dev)
-    glaunch = phase_g(smm, K, _loop, torch, dev, dia_solves)["launches"]
+    dstats, dcounts = phase("D", phase_d, smm, _loop, torch, dev)
+    rstats, rcounts = phase("R", phase_r, smm, _loop, torch, dev, dia_solves)
+    hstats = phase("H", phase_h, smm, K, _loop, torch, dev)
+    glaunch = phase("G", phase_g, smm, K, _loop, torch, dev, dia_solves)["launches"]
     earlier = {"dia": ("phase A's K1 at the same shape, CUDA graph", stats["dia_spmv"]["ms"]),
                "ell": ("phase W's K6 at laplace_3d_jittered(113), events",
                        wstats["ell_spmv"]["ms"]),
@@ -3159,13 +3348,13 @@ def main() -> int:
                          wstats["wsell_spmv"]["ms"]),
                "routed": ("phase R's folded product, events", rstats["folded"]["wrapper_ms"])}
     routed = rstats.pop("routed_f32")
-    ustats = phase_u(smm, K, torch, dev, earlier, routed, cg_f64_its)
+    ustats = phase("U", phase_u, smm, K, torch, dev, earlier, routed, cg_f64_its)
     ulaunch = ustats["launches"]
     print("PHASE_U " + json.dumps({k: v for k, v in ustats.items() if k != "launches"}))
-    phase_c(smm, torch, dev)
+    phase("C", phase_c, smm, torch, dev)
     from sparse_matrix_math_tpu_torch.ops import wsell_spmv as W
 
-    xstats, xlaunch = phase_x(smm, W, torch, dev, dia_solves, routed)
+    xstats, xlaunch = phase("X", phase_x, smm, W, torch, dev, dia_solves, routed)
     del routed
     print("PHASE_X " + json.dumps(xstats))
 
@@ -3221,22 +3410,34 @@ def main() -> int:
               phase_u_spmv_throughput=ustats["throughput"]["dia"]),
         # K4/K5: ms from a CUDA graph of 20 applies (wrapper_ms through the
         # wrapper), bound_ms each input read once and z written once,
-        # traffic_bound_ms the variant's own traffic; variants: what the rule
-        # of ops/trisweep.py window_tile took on each phase-A case
+        # traffic_bound_ms the variant's own traffic, at poisson_2d(1414) f32
+        # sweeps 4 (the window kernels); large_reach the same figures of
+        # every phase-A case that took the ring kernel; variants: what the
+        # rule of ops/trisweep.py variant_of took on each phase-A case;
+        # launches are phase P's, phase Q's (the 3-D solves, every apply the
+        # ring kernel) and phase U's
         entry("sgs_apply (smm_sgs_apply_*: window_kernel forward + backward with D; large "
-              "reach: scale_kernel + sweep_kernel)", _TRI_SOURCE,
-              f"{_TRI_PALLAS}:54", pcounts["sgs_apply"] + ulaunch["sgs_apply"],
+              "reach: ring_kernel forward + backward)", _TRI_SOURCE,
+              f"{_TRI_PALLAS}:54",
+              pcounts["sgs_apply"] + qlaunch["sgs_apply"] + ulaunch["sgs_apply"],
               stats["sgs_apply"], phase_u_launches=ulaunch["sgs_apply"],
+              phase_q_launches=qlaunch["sgs_apply"],
               entry=f"{_TRI_PALLAS}:168", wrapper_ms=stats["sgs_apply"]["wrapper_ms"],
               traffic_bound_ms=stats["sgs_apply"]["traffic_bound_ms"],
-              variants=stats["sgs_apply"]["variants"]),
+              large_reach=stats["sgs_apply"]["large_reach"],
+              variants=stats["sgs_apply"]["variants"],
+              solves={k: v for k, v in qstats.items() if "sgs" in k}),
         entry("tri_pair_apply (smm_tri_pair_apply_*: window_kernel forward + backward; large "
-              "reach: scale_kernel + sweep_kernel)", _TRI_SOURCE,
-              f"{_TRI_PALLAS}:54", pcounts["tri_pair_apply"] + ulaunch["tri_pair_apply"],
+              "reach: ring_kernel forward + backward)", _TRI_SOURCE,
+              f"{_TRI_PALLAS}:54",
+              pcounts["tri_pair_apply"] + qlaunch["tri_pair_apply"] + ulaunch["tri_pair_apply"],
               stats["tri_pair_apply"], phase_u_launches=ulaunch["tri_pair_apply"],
+              phase_q_launches=qlaunch["tri_pair_apply"],
               entry=f"{_TRI_PALLAS}:243", wrapper_ms=stats["tri_pair_apply"]["wrapper_ms"],
               traffic_bound_ms=stats["tri_pair_apply"]["traffic_bound_ms"],
-              variants=stats["tri_pair_apply"]["variants"]),
+              large_reach=stats["tri_pair_apply"]["large_reach"],
+              variants=stats["tri_pair_apply"]["variants"],
+              solves={k: v for k, v in qstats.items() if "ic0" in k}),
         # K6 and K7 are one kernel over the slab-sorted SELL-32 layout; bound_ms
         # counts the stored entries, layout_bytes the layout's slots (padding
         # too), planes_bound_ms the planes' ELL / W-SELL model
@@ -3321,6 +3522,7 @@ def main() -> int:
         require(k["launches"] > 0, f"{k['name']}: launched {k['launches']} times on the main path",
                 quiet=True)
     print(built)
+    print(f"seconds by phase: {took}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -49,20 +49,64 @@
 // (pallas_trisweep.py:188-193), two-sided and with a margin; this one is
 // one-sided and walks the window as a stream.
 //
+// Large reach: the ring kernel (ring_kernel), one launch per direction
+// too.  Where a level's ring outgrows the shared memory (poisson_3d(243):
+// reach 59,049 rows, 236 KB a level in float32) or the halo reaches two
+// tiles (every CTA would sweep most of a neighbour's rows again), the
+// levels go to device memory instead, but only to a small ring of them
+// that stays in L2.  The padded vector is cut into chunks (4,096 float32
+// or 2,048 float64 rows with 1-4 strict diagonals, else 1,024), taken in
+// the dependences' order (ascending forward, descending backward) by
+// persistent CTAs, two an SM, through an atomic ticket.  A CTA copies its
+// chunk's operands (rhs, inverse diagonal, strict diagonals) from device
+// memory once, by 16-byte cp.async runs marked L2 evict-first, into shared
+// memory, and computes every level of the chunk: level k of row e reads
+// level k-1 of rows up to `reach` behind it, from the chunk itself (a
+// shared-memory copy of its previous level) or from the level's global
+// ring, `ring_rows` rows allocated by the caller, with L2-only loads and
+// stores (ld/st.global.cg; an offset of a chunk or more issues all its
+// loads before it uses one); the last level is written to the output.
+// Per chunk a flag counts its levels done: level k of chunk c waits until
+// level k-1 of the chunks its rows read (for each offset, the chunks of
+// its first and last row) is published, and a chunk waits before it
+// starts until every level of the readers of its slot's previous chunk
+// (c - ring_chunks .. c - ring_chunks + h, h = ceil(reach / chunk);
+// mirrored backward) is done.  Publishing is the stores, a barrier, then
+// one thread's fence.acq_rel.gpu and relaxed flag store; waiting is
+// ld.acquire.gpu, then a barrier.  The chunks in flight stagger by one
+// level (chunk c's level k needs chunk c-1's level k-1), so they do not
+// serialize, but every level costs a publish and a poll: the kernel is
+// bound by that latency and the rows two CTAs hold, not by device-memory
+// bytes.  The caller sizes the ring h + 1 + grid chunks (ops/trisweep.py
+// ring_chunks), so the reuse wait rarely blocks; a ring shorter than h + 1
+// chunks is refused (a chunk would wait on itself).  No deadlock: a CTA
+// waits only on chunks of lower tickets, each held by a running CTA (a
+// ticket is taken only by a running CTA, so the grid need not be
+// resident), and the lowest unfinished chunk waits on nothing unfinished.
+// The tickets and flags (2 + 2 * ceil(n_total / kChunk) ints, the forward
+// launch's apart from the backward's) are zeroed by a cudaMemsetAsync on
+// the stream at every apply, so a captured CUDA graph replays the reset.
+// Traffic per direction: each operand read once, the output written once,
+// the levels' ring through L2.
+//
 // Which variant runs is the caller's explicit rule (ops/trisweep.py
-// window_tile): the window kernels when each direction's rings and staging
+// variant_of): the window kernels when each direction's rings and staging
 // fit the 227 KB of shared memory a block may use and the halo
 // (levels - 1) * reach is shorter than two tiles (tile = the chunks of the
 // layout split over the card's SMs; every CTA sweeps its halo again); else
-// the large-reach variant, one launch per step (scale_kernel, then
-// sweep_kernel once per sweep, 2 * sweeps launches per apply), whose
-// iterates go through device memory (poisson_3d(243),
-// poisson_3d_27pt(128), and poisson_3d(40) at sweeps 4).  One cooperative launch per
-// direction with a grid barrier between sweeps measured 5-13% slower there
-// on three of four cases and 2.5% faster on the fourth on an H100, so the
-// per-sweep kernels stay.  The split is not a fallback on failure: a
-// refused launch still returns its error.
-// tile == 0 asks for the large-reach variant.
+// the ring kernel where each of its CTAs gets a chunk and its diagonals
+// stay in shared memory (poisson_3d(243), poisson_3d_27pt(128) float32,
+// poisson_3d(100) float64); else the per-sweep kernels of the first port,
+// one launch per step (scale_kernel, then sweep_kernel once per sweep),
+// whose iterates go through device memory: they measured faster on the
+// smaller large-reach shapes, and they alone take strict offsets of the
+// wrong sign for their direction (the ordered walks cannot).  The split is
+// not a fallback on failure: a refused launch still returns its error.
+// tile > 0 asks for the window kernels, tile == 0 the ring kernel,
+// tile == -1 the per-sweep kernels.  The kernels are opted in to the
+// card's shared memory once per device (smm_trisweep_prepare), and the
+// ring kernel's grid comes from smm_trisweep_ring_blocks_per_sm, both
+// called once by the wrapper.
 //
 // Exactness: every product, sum and difference is rounded on its own
 // (__fmul_rn / __fadd_rn / __fsub_rn and the __d* forms; no FMA
@@ -70,9 +114,10 @@
 // then subtracted from the rhs, then scaled by the inverse diagonal; SGS's
 // middle is diag * x, then * invd_u, as two roundings.  The plain PyTorch
 // versions in ops/trisweep.py do the same operations in the same order, so
-// kernel and plain version agree bit for bit, in both variants.
+// kernel and plain version agree bit for bit, in every variant.
 //
-// Guards: rows outside [lead, lead + n_rows) write an exact 0 and read
+// Guards: rows outside [lead, lead + n_rows) write an exact 0 (the ring
+// kernel also into its ring, where a data row may read them) and read
 // nothing.  The shared geometry's guards cover max|offset| on both sides,
 // so every read of a data row stays in bounds.  Index math is 64-bit, and
 // 32-bit inside a window kernel's window, which the C entry bounds.
@@ -338,6 +383,292 @@ window_kernel(const T* src, const T* __restrict__ mid, const T* __restrict__ inv
   copy_wait<0>();
 }
 
+// -- the ring kernel: one direction of a large-reach apply ---------------------
+
+constexpr int kRingPollNs = 32;  // the back-off of a poll that found a level not ready
+
+// Threads and rows per thread of the ring kernel.  With 1-4 strict
+// diagonals a chunk holds 16 KB of each operand (4,096 float32 or 2,048
+// float64 rows), so that its operands and its two level copies take at
+// most 128 KB and two CTAs share an SM (half the rows and four CTAs, or no
+// register cap and one CTA, measured 1-37% slower on an H100), on 512
+// threads in float32 (7-13% faster than 256 at poisson_3d(243) and (100))
+// and 256 in float64 (5% faster than 512); the general instantiation 4
+// rows on 256 threads.
+template <typename T, int ND>
+__host__ __device__ constexpr int ring_threads() {
+  return ND > 0 && sizeof(T) == 4 ? 512 : 256;
+}
+template <typename T, int ND>
+__host__ __device__ constexpr int ring_rows_per_thread() {
+  return ND > 0 ? 16384 / ring_threads<T, ND>() / static_cast<int>(sizeof(T)) : 4;
+}
+
+// Shared memory of one direction of the ring kernel (chunk rows C): with a
+// sweep, the chunk's previous and current level, its rhs and inverse
+// diagonal, and its strict diagonals where they fit (always with 1-4; the
+// general instantiation's while two CTAs still fit an SM, else they are
+// read from global memory at each level); a scale stages nothing.
+template <typename T>
+long long ring_smem(int nd, int levels, int rows, bool* coef_smem) {
+  *coef_smem = false;
+  if (levels == 1) return 0;
+  const long long vec = static_cast<long long>(rows) * static_cast<long long>(sizeof(T));
+  *coef_smem = nd <= 4 || (4 + nd) * vec <= kSmemMax / 2;
+  return (4 + (*coef_smem ? nd : 0)) * vec;
+}
+
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Release of a chunk's level: the fence orders every store the block made
+// before its barrier ahead of the flag's store.
+__device__ __forceinline__ void publish(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// cp.async of N consecutive elements (a multiple of 16 bytes) into shared
+// memory through L2 only, marked evict-first there.
+template <typename T, int N>
+__device__ __forceinline__ void copy_run(T* smem, const T* gmem, unsigned long long policy) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  static_assert(kBytes % 16 == 0, "copy_run");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+#pragma unroll
+  for (int b = 0; b < kBytes; b += 16) {
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(s + b),
+                 "l"(reinterpret_cast<const char*>(gmem) + b), "l"(policy));
+  }
+}
+
+// One direction (kForward: chunks ascending, offsets < 0; else descending,
+// offsets > 0) of a large-reach apply, chunk by chunk in ticket order, on
+// chunks of W * R rows (ring_threads, ring_rows_per_thread).  kMid: the
+// rhs is mid * src.  ND > 0: exactly ND strict diagonals; ND == 0: nd of
+// them (the diagonals in shared memory when coef_smem, else read at each
+// level).  A chunk's operands are copied by 16-byte cp.async runs, R
+// consecutive rows a thread; then thread tid computes the rows tid + i * W,
+// so a warp's reads and writes of a ring are 32 consecutive
+// words.  `ticket` counts the chunks taken, `flags[c]` the levels of chunk c
+// done; ring level k is ring + k * ring_rows, chunk c at rows
+// (c % (ring_rows / C)) * C.  Rows past n_total (the last chunk's tail) and
+// guard rows compute an exact 0 and read no level.
+template <typename T, bool kForward, bool kMid, int ND>
+__global__ void __launch_bounds__(ring_threads<T, ND>(), 2)
+ring_kernel(const T* __restrict__ src, const T* __restrict__ mid, const T* __restrict__ invd,
+            const T* __restrict__ diags, const Offsets offs, int nd, T* __restrict__ out,
+            T* ring, int ring_rows, int* ticket, int* flags, int levels, int reach,
+            bool coef_smem, long long n_total, long long lead, long long n_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_ticket;
+  constexpr int W = ring_threads<T, ND>();
+  constexpr int R = ring_rows_per_thread<T, ND>();
+  constexpr int C = W * R;
+  const int tid = threadIdx.x;
+  const int nchunks = static_cast<int>((n_total + C - 1) / C);
+  const int ring_chunks = ring_rows / C;
+  const int h = (reach + C - 1) / C;  // chunks behind a chunk that its rows read
+  const int nds = levels > 1 ? (ND > 0 ? ND : nd) : 0;
+  T* lvl = reinterpret_cast<T*>(smem_raw);  // [2][C]: the chunk's levels k-1, k
+  T* s_rhs = lvl + 2 * C;                   // [C]
+  T* s_inv = s_rhs + C;                     // [C]
+  T* s_coef = s_inv + C;                    // [nds][C] when coef_smem
+  unsigned long long evict_first;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(evict_first));
+
+  for (;;) {
+    if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+    __syncthreads();
+    const int t = s_ticket;  // thread 0 writes it again only after two more barriers
+    if (t >= nchunks) break;
+    const int c = kForward ? t : nchunks - 1 - t;
+    const long long c0 = static_cast<long long>(c) * C;
+    const int p0 = (c % ring_chunks) * C;
+    // the chunk's data rows, relative to c0
+    const int d_lo = static_cast<int>(lead > c0 ? (lead - c0 < C ? lead - c0 : C) : 0);
+    const long long end = lead + n_rows - c0;
+    const int d_hi = static_cast<int>(end < 0 ? 0 : (end > C ? C : end));
+
+    // the chunk's operands, read once: rhs, inverse diagonal, the strict
+    // diagonals (a scale reads its rows in place of staging them)
+    T mid_r[kMid ? R : 1];
+    if (levels > 1) {
+      const int g = tid * R;  // this thread's rows g .. g + R - 1
+      if (g + R > d_lo && g < d_hi) {
+        copy_run<T, R>(s_rhs + g, src + c0 + g, evict_first);
+        copy_run<T, R>(s_inv + g, invd + c0 + g, evict_first);
+        if (coef_smem) {
+          const T* dp = diags + c0 + g;
+          for (int d = 0; d < nds; ++d, dp += n_total) copy_run<T, R>(s_coef + d * C + g, dp, evict_first);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    if constexpr (kMid) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = tid + i * W;
+        mid_r[i] = r >= d_lo && r < d_hi ? __ldcs(mid + c0 + r) : T(0);
+      }
+    }
+    // before the chunk overwrites its slots: every level of the readers of
+    // the slots' previous chunk done
+    if (levels > 1) {
+      for (int u = tid; u <= h; u += W) {
+        const int q = kForward ? c - ring_chunks + u : c + ring_chunks - u;
+        if (q < 0 || q >= nchunks) continue;
+        while (load_acquire(flags + q) < levels) __nanosleep(kRingPollNs);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (levels == 1) {
+      // a scale: each data row's rhs times its inverse diagonal
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = tid + i * W;
+        if (c0 + r >= n_total) continue;
+        T v = T(0);
+        if (r >= d_lo && r < d_hi) {
+          const T sv = __ldcs(src + c0 + r);
+          v = mul_rn(kMid ? mul_rn(mid_r[i], sv) : sv, __ldcs(invd + c0 + r));
+        }
+        __stcs(out + c0 + r, v);
+      }
+      continue;
+    }
+    if constexpr (kMid) {
+      // rhs = mid * src, in place: from here on each row is its owner's
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = tid + i * W;
+        if (r >= d_lo && r < d_hi) s_rhs[r] = mul_rn(mid_r[i], s_rhs[r]);
+      }
+    }
+
+    for (int k = 0; k < levels; ++k) {
+      if (k > 0) {
+        // wait for level k-1 of the chunks this level reads: for each
+        // offset, the chunks of its first and last row
+        for (int j = tid; j < 2 * nds; j += W) {
+          const long long g = c0 + offs.v[j >> 1] + ((j & 1) ? C - 1 : 0);
+          if (g < 0) continue;
+          const long long q = g / C;
+          if (q == c || q >= nchunks) continue;
+          while (load_acquire(flags + q) < k) __nanosleep(kRingPollNs);
+        }
+        __syncthreads();
+      }
+
+      T v[R];
+      if (k == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int r = tid + i * W;
+          v[i] = r >= d_lo && r < d_hi ? mul_rn(s_rhs[r], s_inv[r]) : T(0);
+        }
+      } else {
+        const T* prev_s = lvl + ((k - 1) & 1) * C;
+        const T* prev_g = ring + static_cast<long long>(k - 1) * ring_rows;
+        // level k-1 at row + o of this thread's rows: an offset of a chunk
+        // or more reads the ring alone, its loads issued before any is
+        // used; a shorter one the chunk's own copy, and the ring for the
+        // rows behind the chunk
+        auto gather = [&](int o, T (&x)[R]) {
+          if (kForward ? o <= -C : o >= C) {
+            int qb = p0 + o + tid;  // the ring row of row tid + o
+            if (kForward) {
+              qb = qb < 0 ? qb + ring_rows : qb;
+            } else {
+              qb = qb >= ring_rows ? qb - ring_rows : qb;
+            }
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              const int q = qb + i * W;
+              x[i] = __ldcg(prev_g + (q >= ring_rows ? q - ring_rows : q));
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              const int rel = tid + i * W + o;
+              x[i] = prev_s[kForward ? (rel > 0 ? rel : 0) : (rel < C ? rel : C - 1)];
+            }
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              if (kForward ? i * W + o >= 0 : i * W + W - 1 + o < C) continue;  // block-uniform
+              const int rel = tid + i * W + o;
+              if (kForward ? rel < 0 : rel >= C) {
+                int q = p0 + rel;
+                if (kForward) {
+                  q = q < 0 ? q + ring_rows : q;
+                } else {
+                  q = q >= ring_rows ? q - ring_rows : q;
+                }
+                x[i] = __ldcg(prev_g + q);
+              }
+            }
+          }
+        };
+        T acc[R];
+        // the terms of diagonal d, summed in ascending-offset order
+        auto add_terms = [&](int d, const T (&x)[R]) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int r = tid + i * W;
+            const T cf = coef_smem             ? s_coef[d * C + r]
+                         : r >= d_lo && r < d_hi ? __ldg(diags + d * n_total + c0 + r)
+                                                 : T(0);
+            const T p = mul_rn(cf, x[i]);
+            acc[i] = d == 0 ? p : add_rn(acc[i], p);
+          }
+        };
+        if constexpr (ND > 0) {
+          T x[ND][R];
+#pragma unroll
+          for (int d = 0; d < ND; ++d) gather(offs.v[d], x[d]);
+#pragma unroll
+          for (int d = 0; d < ND; ++d) add_terms(d, x[d]);
+        } else {
+          for (int d = 0; d < nds; ++d) {
+            T x[R];
+            gather(offs.v[d], x);
+            add_terms(d, x);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int r = tid + i * W;
+          v[i] = r >= d_lo && r < d_hi ? mul_rn(sub_rn(s_rhs[r], acc[i]), s_inv[r]) : T(0);
+        }
+      }
+      if (k < levels - 1) {
+        T* cur_g = ring + static_cast<long long>(k) * ring_rows + p0 + tid;
+        T* cur_s = lvl + (k & 1) * C + tid;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          __stcg(cur_g + i * W, v[i]);
+          cur_s[i * W] = v[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const long long e = c0 + tid + i * W;
+          if (e < n_total) __stcs(out + e, v[i]);
+        }
+      }
+      __syncthreads();
+      // the last thread publishes, while the first ones poll for the next level
+      if (tid == W - 1) publish(flags + c, k + 1);
+    }
+  }
+}
+
 // -- the large-reach variant: one launch per step ------------------------------
 
 // Init step of one direction: v = src (times mid, when mid is given);
@@ -450,19 +781,6 @@ int window_launch(const T* src, const T* mid, const T* invd, const T* diags,
                   const Offsets& offs, int nd, T* out, int levels, int reach, long long smem,
                   long long tile, long long n_total, long long lead, long long n_rows,
                   cudaStream_t stream) {
-  // the opt-in to more than 48 KB of dynamic shared memory, once per device
-  static bool opted_in[64] = {};
-  int dev = 0;
-  int code = static_cast<int>(cudaGetDevice(&dev));
-  if (code != 0) return code;
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!opted_in[dev]) {
-    code = static_cast<int>(cudaFuncSetAttribute(window_kernel<T, kForward, kMid, ND>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 kSmemMax));
-    if (code != 0) return code;
-    opted_in[dev] = true;
-  }
   const unsigned int grid = static_cast<unsigned int>((n_total + tile - 1) / tile);
   window_kernel<T, kForward, kMid, ND><<<grid, kWindowThreads, smem, stream>>>(
       src, mid, invd, diags, offs, nd, out, levels, reach, tile, n_total, lead, n_rows);
@@ -515,19 +833,150 @@ int window_direction(const T* src, const T* mid, const T* invd, const T* diags,
 #undef SMM_WINDOW
 }
 
+// Flags of one direction in the ring kernel's sync buffer: [forward
+// ticket, backward ticket, forward flags, backward flags], each direction's
+// flags one per chunk of the smallest chunk, kChunk rows.
+inline long long ring_flag_stride(long long n_total) { return (n_total + kChunk - 1) / kChunk; }
+
+// One direction through the ring kernel at one instantiation.
+template <typename T, bool kForward, bool kMid, int ND>
+int ring_launch(const T* src, const T* mid, const T* invd, const T* diags, const Offsets& offs,
+                int nd, T* out, T* ring, int ring_rows, int* sync, int levels, int reach,
+                int grid, long long n_total, long long lead, long long n_rows,
+                cudaStream_t stream) {
+  constexpr int C = ring_threads<T, ND>() * ring_rows_per_thread<T, ND>();
+  if (levels > 1 && (ring == nullptr || ring_rows % C != 0 ||
+                     ring_rows / C < (reach + C - 1) / C + 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the 16-byte copies need every vector they read aligned to 16 bytes
+  // (rows of the diagonals lie n_total elements apart, a multiple of 128)
+  const unsigned long long addr_bits = reinterpret_cast<unsigned long long>(src) |
+                                       reinterpret_cast<unsigned long long>(invd) |
+                                       reinterpret_cast<unsigned long long>(diags);
+  if (levels > 1 && (addr_bits % 16 != 0 || n_total % 128 != 0)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  bool coef_smem = false;
+  const long long smem = ring_smem<T>(nd, levels, C, &coef_smem);
+  const long long nchunks = (n_total + C - 1) / C;
+  int* ticket = sync + (kForward ? 0 : 1);
+  int* flags = sync + 2 + (kForward ? 0 : ring_flag_stride(n_total));
+  const int blocks = static_cast<int>(grid < nchunks ? grid : nchunks);
+  ring_kernel<T, kForward, kMid, ND><<<blocks, ring_threads<T, ND>(), smem, stream>>>(
+      src, mid, invd, diags, offs, nd, out, ring, ring_rows, ticket, flags, levels, reach,
+      coef_smem, n_total, lead, n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One direction through the ring kernel: checks, then the instantiation
+// for 1-4 strict diagonals under a sweep, or the general one.  A ring
+// shorter than the reach and a chunk (a chunk would wait on itself) is
+// refused, never wrapped.
+template <typename T, bool kForward, bool kMid>
+int ring_direction(const T* src, const T* mid, const T* invd, const T* diags,
+                   const Offsets& offs, int nd, T* out, int sweeps, T* ring, int ring_rows,
+                   int* sync, int grid, long long n_total, long long lead, long long n_rows,
+                   cudaStream_t stream) {
+  const int levels = nd > 0 ? sweeps : 1;
+  int reach = 0;
+  if (!reach_of(offs, nd, kForward, &reach)) return static_cast<int>(cudaErrorInvalidValue);
+#define SMM_RING(ND)                                                                       \
+  ring_launch<T, kForward, kMid, ND>(src, mid, invd, diags, offs, nd, out, ring, ring_rows, \
+                                     sync, levels, reach, grid, n_total, lead, n_rows, stream)
+  switch (levels > 1 ? nd : 0) {
+    case 1:
+      return SMM_RING(1);
+    case 2:
+      return SMM_RING(2);
+    case 3:
+      return SMM_RING(3);
+    case 4:
+      return SMM_RING(4);
+    default:
+      return SMM_RING(0);
+  }
+#undef SMM_RING
+}
+
+// Blocks per SM and chunk rows of one direction's ring kernel instantiation.
+template <typename T, bool kForward, bool kMid, int ND>
+int ring_blocks_at(int nd, int levels, int* blocks, int* chunk) {
+  constexpr int C = ring_threads<T, ND>() * ring_rows_per_thread<T, ND>();
+  bool coef_smem = false;
+  const long long smem = ring_smem<T>(nd, levels, C, &coef_smem);
+  *chunk = C;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ring_kernel<T, kForward, kMid, ND>, ring_threads<T, ND>(),
+      static_cast<size_t>(smem)));
+}
+
+template <typename T, bool kForward, bool kMid>
+int ring_blocks(int nd, int sweeps, int* blocks, int* chunk) {
+  const int levels = nd > 0 ? sweeps : 1;
+  switch (levels > 1 ? nd : 0) {
+    case 1:
+      return ring_blocks_at<T, kForward, kMid, 1>(nd, levels, blocks, chunk);
+    case 2:
+      return ring_blocks_at<T, kForward, kMid, 2>(nd, levels, blocks, chunk);
+    case 3:
+      return ring_blocks_at<T, kForward, kMid, 3>(nd, levels, blocks, chunk);
+    case 4:
+      return ring_blocks_at<T, kForward, kMid, 4>(nd, levels, blocks, chunk);
+    default:
+      return ring_blocks_at<T, kForward, kMid, 0>(nd, levels, blocks, chunk);
+  }
+}
+
+// The opt-in of every window and ring instantiation of one direction to
+// the block's 227 KB of shared memory.
+template <typename T, bool kForward, bool kMid>
+int opt_in_direction() {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(window_kernel<T, kForward, kMid, 0>),
+      reinterpret_cast<const void*>(window_kernel<T, kForward, kMid, 1>),
+      reinterpret_cast<const void*>(window_kernel<T, kForward, kMid, 2>),
+      reinterpret_cast<const void*>(window_kernel<T, kForward, kMid, 3>),
+      reinterpret_cast<const void*>(window_kernel<T, kForward, kMid, 4>),
+      reinterpret_cast<const void*>(ring_kernel<T, kForward, kMid, 0>),
+      reinterpret_cast<const void*>(ring_kernel<T, kForward, kMid, 1>),
+      reinterpret_cast<const void*>(ring_kernel<T, kForward, kMid, 2>),
+      reinterpret_cast<const void*>(ring_kernel<T, kForward, kMid, 3>),
+      reinterpret_cast<const void*>(ring_kernel<T, kForward, kMid, 4>)};
+  for (const void* fn : fns) {
+    const int code = static_cast<int>(
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax));
+    if (code != 0) return code;
+  }
+  return 0;
+}
+
+template <typename T>
+int opt_in_all() {
+  int code = opt_in_direction<T, true, false>();
+  if (code == 0) code = opt_in_direction<T, false, false>();
+  if (code == 0) code = opt_in_direction<T, false, true>();
+  return code;
+}
+
 // The whole apply.  w0 and w1 are scratch vectors of n_total elements (the
-// window variant uses w0 alone) and out receives z; none of them may alias
-// r or each other.  mid is the SGS diagonal, or null for a factor pair.
-// tile > 0: the window kernels on tiles of `tile` rows (a multiple of
-// kChunk); tile == 0: the large-reach variant.
+// window and ring variants use w0 alone) and out receives z; none of them
+// may alias r or each other.  mid is the SGS diagonal, or null for a
+// factor pair.  tile > 0: the window kernels on tiles of `tile` rows (a
+// multiple of kChunk); tile == 0: the ring kernel, over `ring` (the
+// levels but the last of both directions, ring_rows elements each, a whole
+// number of either direction's chunks), `sync` (2 + 2 * ceil(n_total /
+// kChunk) ints, zeroed here on the stream) and at most `grid` CTAs a
+// direction; tile == -1: the per-sweep kernels.
 template <typename T>
 int launch_apply(const void* r_, const void* invd_l_, const void* invd_u_, const void* mid_,
                  const void* ld_, const void* l_offsets, int nd_l, const void* ud_,
                  const void* u_offsets, int nd_u, void* w0_, void* w1_, void* out_,
                  int sweeps, long long n_total, long long lead, long long n_rows,
-                 long long tile, void* stream_) {
+                 long long tile, void* ring_, int ring_rows, void* sync_, int grid,
+                 void* stream_) {
   if (sweeps < 1 || nd_l < 0 || nd_l > kMaxDiags || nd_u < 0 || nd_u > kMaxDiags ||
-      tile < 0 || tile % kChunk != 0) {
+      tile < -1 || (tile > 0 && tile % kChunk != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const T* r = static_cast<const T*>(r_);
@@ -556,7 +1005,30 @@ int launch_apply(const void* r_, const void* invd_l_, const void* invd_u_, const
                                              sweeps, tile, n_total, lead, n_rows, stream);
   }
 
-  // forward, in w0 / w1
+  if (tile == 0) {
+    if (sync_ == nullptr || grid < 1 || ring_rows < 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    int* sync = static_cast<int*>(sync_);
+    T* ring = static_cast<T*>(ring_);
+    int code = static_cast<int>(cudaMemsetAsync(
+        sync, 0, (2 + 2 * ring_flag_stride(n_total)) * sizeof(int), stream));
+    if (code != 0) return code;
+    code = ring_direction<T, true, false>(r, nullptr, invd_l, ld, l_offs, nd_l, w0, sweeps,
+                                          ring, ring_rows, sync, grid, n_total, lead, n_rows,
+                                          stream);
+    if (code != 0) return code;
+    if (mid != nullptr) {
+      return ring_direction<T, false, true>(w0, mid, invd_u, ud, u_offs, nd_u, out, sweeps,
+                                            ring, ring_rows, sync, grid, n_total, lead, n_rows,
+                                            stream);
+    }
+    return ring_direction<T, false, false>(w0, nullptr, invd_u, ud, u_offs, nd_u, out, sweeps,
+                                           ring, ring_rows, sync, grid, n_total, lead, n_rows,
+                                           stream);
+  }
+
+  // the per-sweep kernels, forward in w0 / w1
   T* xw = nullptr;  // w0 or w1: the forward result
   int code = direction<T>(r, nullptr, invd_l, nullptr, ld, l_offs, nd_l, sweeps, w0, w1,
                           n_total, lead, n_rows, stream, &xw);
@@ -579,45 +1051,85 @@ int launch_apply(const void* r_, const void* invd_l_, const void* invd_u_, const
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/_build.py).  Every function
-// returns the first non-zero CUDA error of its launches, or 0.
+// returns the first non-zero CUDA error of its calls, or 0.
 extern "C" {
 
 // r, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
-// sweeps, n_total, lead, n_rows, tile, stream
+// sweeps, n_total, lead, n_rows, tile, ring, ring_rows, sync, grid, stream
 int smm_sgs_apply_f32(const void* r, const void* invd, const void* diag, const void* ld,
                       const void* l_offsets, int nd_l, const void* ud, const void* u_offsets,
                       int nd_u, void* w0, void* w1, void* out, int sweeps, long long n_total,
-                      long long lead, long long n_rows, long long tile, void* stream) {
+                      long long lead, long long n_rows, long long tile, void* ring,
+                      int ring_rows, void* sync, int grid, void* stream) {
   return launch_apply<float>(r, invd, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0,
-                             w1, out, sweeps, n_total, lead, n_rows, tile, stream);
+                             w1, out, sweeps, n_total, lead, n_rows, tile, ring, ring_rows,
+                             sync, grid, stream);
 }
 
 int smm_sgs_apply_f64(const void* r, const void* invd, const void* diag, const void* ld,
                       const void* l_offsets, int nd_l, const void* ud, const void* u_offsets,
                       int nd_u, void* w0, void* w1, void* out, int sweeps, long long n_total,
-                      long long lead, long long n_rows, long long tile, void* stream) {
+                      long long lead, long long n_rows, long long tile, void* ring,
+                      int ring_rows, void* sync, int grid, void* stream) {
   return launch_apply<double>(r, invd, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0,
-                              w1, out, sweeps, n_total, lead, n_rows, tile, stream);
+                              w1, out, sweeps, n_total, lead, n_rows, tile, ring, ring_rows,
+                              sync, grid, stream);
 }
 
 // r, invd_l, invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
-// sweeps, n_total, lead, n_rows, tile, stream
+// sweeps, n_total, lead, n_rows, tile, ring, ring_rows, sync, grid, stream
 int smm_tri_pair_apply_f32(const void* r, const void* invd_l, const void* invd_u,
                            const void* ld, const void* l_offsets, int nd_l, const void* ud,
                            const void* u_offsets, int nd_u, void* w0, void* w1, void* out,
                            int sweeps, long long n_total, long long lead, long long n_rows,
-                           long long tile, void* stream) {
+                           long long tile, void* ring, int ring_rows, void* sync, int grid,
+                           void* stream) {
   return launch_apply<float>(r, invd_l, invd_u, nullptr, ld, l_offsets, nd_l, ud, u_offsets,
-                             nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, stream);
+                             nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, ring,
+                             ring_rows, sync, grid, stream);
 }
 
 int smm_tri_pair_apply_f64(const void* r, const void* invd_l, const void* invd_u,
                            const void* ld, const void* l_offsets, int nd_l, const void* ud,
                            const void* u_offsets, int nd_u, void* w0, void* w1, void* out,
                            int sweeps, long long n_total, long long lead, long long n_rows,
-                           long long tile, void* stream) {
+                           long long tile, void* ring, int ring_rows, void* sync, int grid,
+                           void* stream) {
   return launch_apply<double>(r, invd_l, invd_u, nullptr, ld, l_offsets, nd_l, ud, u_offsets,
-                              nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, stream);
+                              nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, ring,
+                              ring_rows, sync, grid, stream);
+}
+
+// The opt-in of every window and ring kernel to the block's 227 KB of
+// shared memory on the current device: once per device, before the first
+// apply there (and before any capture).
+int smm_trisweep_prepare(void) {
+  const int code = opt_in_all<float>();
+  return code != 0 ? code : opt_in_all<double>();
+}
+
+// CTAs of the ring kernel one SM holds in both directions of an apply
+// (f64: float64, else float32; sgs: the backward direction scales by D),
+// and each direction's chunk rows, after smm_trisweep_prepare.
+int smm_trisweep_ring_blocks_per_sm(int f64, int sgs, int nd_l, int nd_u, int sweeps,
+                                    int* blocks, int* chunk_l, int* chunk_u) {
+  if (sweeps < 1 || nd_l < 0 || nd_l > kMaxDiags || nd_u < 0 || nd_u > kMaxDiags) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int fwd = 0, bwd = 0;
+  int code = f64 ? ring_blocks<double, true, false>(nd_l, sweeps, &fwd, chunk_l)
+                 : ring_blocks<float, true, false>(nd_l, sweeps, &fwd, chunk_l);
+  if (code != 0) return code;
+  if (sgs) {
+    code = f64 ? ring_blocks<double, false, true>(nd_u, sweeps, &bwd, chunk_u)
+               : ring_blocks<float, false, true>(nd_u, sweeps, &bwd, chunk_u);
+  } else {
+    code = f64 ? ring_blocks<double, false, false>(nd_u, sweeps, &bwd, chunk_u)
+               : ring_blocks<float, false, false>(nd_u, sweeps, &bwd, chunk_u);
+  }
+  if (code != 0) return code;
+  *blocks = fwd < bwd ? fwd : bwd;
+  return 0;
 }
 
 }  // extern "C"

@@ -27,16 +27,19 @@ SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("dia_spmv.cu", "trisweep.cu", "sell_spmv.cu",
                  "dia_spmv_df.cu", "stream_gather.cu"))
 _BUILD_DIR = _PKG / "build"
+# --split-compile=0: each nvcc runs its optimization passes on every CPU
+# (csrc/trisweep.cu, the longest, 25.1 s alone, 13.4 s so on an H100 host)
 _COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "--split-compile=0",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _PADDED = [_P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _P, _LL, _LL, _P]
-_APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _LL, _P]
+_APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _LL, _P, _I, _P,
+          _I, _P]
 _SIGNATURES = {
     # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, tile, segs,
     # stage_bytes, grid, stream
@@ -50,13 +53,19 @@ _SIGNATURES = {
     "smm_dia_spmv_f32": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     "smm_dia_spmv_f64": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     # r, invd, diag, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1, out,
-    # sweeps, n_total, lead, n_rows, tile, stream
+    # sweeps, n_total, lead, n_rows, tile, ring, ring_rows, sync, grid, stream
     "smm_sgs_apply_f32": _APPLY,
     "smm_sgs_apply_f64": _APPLY,
     # r, invd_l, invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1,
-    # out, sweeps, n_total, lead, n_rows, tile, stream
+    # out, sweeps, n_total, lead, n_rows, tile, ring, ring_rows, sync, grid,
+    # stream
     "smm_tri_pair_apply_f32": _APPLY,
     "smm_tri_pair_apply_f64": _APPLY,
+    # the sweep kernels' opt-in to the card's shared memory
+    "smm_trisweep_prepare": [],
+    # f64, sgs, nd_l, nd_u, sweeps, out: the ring kernel's blocks per SM,
+    # each direction's chunk rows
+    "smm_trisweep_ring_blocks_per_sm": [_I, _I, _I, _I, _I, _P, _P, _P],
     # vals, cols, chunk_ptr, row_of, x, y, n_slabs, n_rows, k, stream
     "smm_sell_spmm_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
     "smm_sell_spmm_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],

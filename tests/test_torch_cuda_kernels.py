@@ -322,7 +322,9 @@ def test_one_sided_and_diagonal_applies(cuda_device, offsets):
 # Shapes of many window tiles (poisson_2d(300): 89 tiles of one chunk, the
 # halo 900 rows at sweeps 4) and one whose tile of 1024 rows is shorter
 # than its halo (poisson_3d(40), reach 1600): the window kernels at sweeps 2
-# (a halo of 1.6 tiles), the large-reach variant at sweeps 4 (4.7 tiles).
+# (a halo of 1.6 tiles) and at sweeps 4 in float32 (4.7 tiles, a window of
+# 23 KB a CTA), the per-sweep kernels at sweeps 4 in float64 (46 KB; 33
+# chunks of the ring kernel).
 MULTI_TILE = [("sgs", "poisson_2d", (300,)), ("sgs", "convection_diffusion_2d", (300,)),
               ("ic0", "poisson_2d", (300,)), ("ilu0", "poisson_2d", (300,)),
               ("sgs", "poisson_3d", (40,))]
@@ -343,7 +345,7 @@ def test_multi_tile_applies_match_plain(cuda_device, kind, name, args, dtype, sw
                                      strict_layout="csr")
         pre = PaddedTriPair.from_factors(fac.lower, fac.upper, dia)
         fns = (T.tri_pair_apply_fused, T.tri_pair_apply_plain, "tri_pair_apply")
-    large = name == "poisson_3d" and sweeps == 4
+    large = name == "poisson_3d" and sweeps == 4 and dtype == torch.float64
     assert T.variant(pre, cuda_device) == ("per-sweep" if large else "window")
     _check_apply(pre, *fns[:2], fns[2], dtype, cuda_device)
 
@@ -358,26 +360,42 @@ def test_windowed_replay_matches_the_kernel(cuda_device):
     assert torch.equal(T.sgs_apply_windowed_plain(pre, rp, tile), T.sgs_apply_fused(pre, rp))
 
 
-def test_window_entry_refuses_a_partial_chunk_tile(cuda_device):
-    """A tile that is not a whole number of chunks, or an offset of the
-    wrong sign for its direction, is refused with an error code."""
+def _bare_sgs_call(pre, rp):
+    """A call of the bare float64 SGS C entry on ``pre`` and ``rp``:
+    ``call(tile, l_offs, ring_rows=0, grid=1)``, the ring and sync buffers
+    sized for ``ring_rows`` and the layout; returns (call, out)."""
     from sparse_matrix_math_tpu_torch.ops import _build
 
-    pre = PaddedSGS.from_dia(_dia("poisson_2d", (40,), torch.float64, cuda_device), sweeps=4)
-    rp = _padded_rhs(pre, torch.float64, cuda_device)
+    T._prepare(rp.device.index)
     lib = _build.library()
-    lo = np.asarray(pre.p_lower.offsets, dtype=np.int32)
     up = np.asarray(pre.p_upper.offsets, dtype=np.int32)
     w0, w1, out = (torch.empty_like(rp) for _ in range(3))
     stream = torch.cuda.current_stream().cuda_stream
+    sync = torch.empty(2 + 2 * -(-pre.n_total // T.CHUNK), dtype=torch.int32,
+                       device=rp.device)
+    keep = []
 
-    def call(tile, l_offs):
+    def call(tile, l_offs, ring_rows=0, grid=1):
+        ring = torch.empty(max(ring_rows, 1) * (pre.sweeps - 1), dtype=rp.dtype,
+                           device=rp.device)
+        keep.append(ring)
         return lib.smm_sgs_apply_f64(
             rp.data_ptr(), pre.inv_diag_p.data_ptr(), pre.diag_p.data_ptr(),
             pre.p_lower.diags_p.data_ptr(), l_offs.ctypes.data, len(l_offs),
             pre.p_upper.diags_p.data_ptr(), up.ctypes.data, len(up), w0.data_ptr(),
-            w1.data_ptr(), out.data_ptr(), 4, pre.n_total, pre.lead, pre.shape[0], tile, stream)
+            w1.data_ptr(), out.data_ptr(), pre.sweeps, pre.n_total, pre.lead, pre.shape[0],
+            tile, ring.data_ptr(), ring_rows, sync.data_ptr(), grid, stream)
 
+    return call, out
+
+
+def test_window_entry_refuses_a_partial_chunk_tile(cuda_device):
+    """A tile that is not a whole number of chunks, or an offset of the
+    wrong sign for its direction, is refused with an error code."""
+    pre = PaddedSGS.from_dia(_dia("poisson_2d", (40,), torch.float64, cuda_device), sweeps=4)
+    rp = _padded_rhs(pre, torch.float64, cuda_device)
+    lo = np.asarray(pre.p_lower.offsets, dtype=np.int32)
+    call, _ = _bare_sgs_call(pre, rp)
     assert call(T.CHUNK, lo) == 0
     assert call(T.CHUNK + 32, lo) != 0
     assert call(T.CHUNK, -lo) != 0
@@ -427,6 +445,140 @@ def test_preconditioned_solves_match_cpu(cuda_device, kind):
         assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-6
         name = "sgs_apply" if kind == "sgs" else "tri_pair_apply"
         assert T.launches[name] - before[name] >= gpu.iterations
+
+
+def test_ring_entry_refuses_a_short_ring(cuda_device):
+    """The ring kernel's C entry refuses a ring shorter than the reach and a
+    chunk (a chunk would wait on itself) and offsets of the wrong sign, and
+    takes the least ring it accepts: bit for bit the plain version."""
+    pre = PaddedSGS.from_dia(_dia("poisson_3d", (40,), torch.float64, cuda_device), sweeps=4)
+    rp = _padded_rhs(pre, torch.float64, cuda_device)
+    lo = np.asarray(pre.p_lower.offsets, dtype=np.int32)
+    plan = T._ring_plan(T._offsets(pre.p_lower), T._offsets(pre.p_upper), pre.n_total, 4,
+                        True, True, 0)
+    chunk = max(plan.chunk_l, plan.chunk_u)
+    least = T.ring_chunks(40 * 40, 0, chunk) * chunk
+    call, out = _bare_sgs_call(pre, rp)
+    assert call(0, lo, least - chunk, 8) != 0
+    assert call(0, lo, least + 32, 8) != 0  # not a whole number of chunks
+    assert call(0, -lo, least, 8) != 0
+    assert call(0, lo, least, 0) != 0  # no CTA
+    assert call(0, lo, least, 8) == 0
+    torch.cuda.synchronize()
+    assert bits_equal(out, T.sgs_apply_plain(pre, rp))
+
+
+def _pre(kind, name, args, dtype, sweeps, device):
+    csr = getattr(smm, name)(*args, dtype=dtype, device=device)
+    dia = smm.dia_from_csr(csr)
+    if kind == "sgs":
+        return PaddedSGS.from_dia(dia, sweeps=sweeps), T.sgs_apply_fused, T.sgs_apply_plain
+    fac = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=sweeps, strict_layout="csr")
+    return (PaddedTriPair.from_factors(fac.lower, fac.upper, dia), T.tri_pair_apply_fused,
+            T.tri_pair_apply_plain)
+
+
+# The ring kernel launched whatever the rule picks (T._apply_variant), on the
+# large-reach shapes where another variant measured faster: a halo of 4.7
+# tiles (poisson_3d(40) at sweeps 4: 17 chunks of 4,096 rows in float32, 33
+# of 2,048 in float64), of two tiles and more (poisson_3d(64)) and a 27-point
+# stencil whose float64 window staging does not fit (13 strict diagonals a
+# direction: the general instantiation, its diagonals read at every level).
+FORCED_RING = [("sgs", "poisson_3d", (40,), torch.float32, 4),
+               ("sgs", "poisson_3d", (40,), torch.float64, 4),
+               ("ic0", "poisson_3d", (40,), torch.float32, 4),
+               ("ilu0", "poisson_3d", (40,), torch.float64, 4),
+               ("sgs", "poisson_3d", (64,), torch.float32, 2),
+               ("sgs", "poisson_3d", (64,), torch.float32, 4),
+               ("sgs", "poisson_3d_27pt", (24,), torch.float64, 2),
+               ("ic0", "poisson_3d_27pt", (24,), torch.float64, 4)]
+
+
+@pytest.mark.parametrize("kind,name,args,dtype,sweeps", FORCED_RING,
+                         ids=[f"{k}-{n}{a}-{str(d)[6:]}-s{s}" for k, n, a, d, s in FORCED_RING])
+def test_ring_kernel_matches_plain(cuda_device, kind, name, args, dtype, sweeps):
+    pre, _, plain = _pre(kind, name, args, dtype, sweeps, cuda_device)
+    _check_apply(pre, lambda p, r: T._apply_variant(p, r, "ring"), plain,
+                 "sgs_apply" if kind == "sgs" else "tri_pair_apply", dtype, cuda_device)
+
+
+# Shapes the rule gives the ring kernel: poisson_3d(100) (250 chunks of 4,096
+# rows in float32, 499 of 2,048 in float64) and poisson_3d_27pt(80) float32
+# at sweeps 4 (513 chunks of 1,024; at sweeps 2 its halo is under two tiles:
+# the window kernels).
+RULE_RING = [("sgs", "poisson_3d", (100,), torch.float32, 4),
+             ("sgs", "poisson_3d", (100,), torch.float64, 4),
+             ("ic0", "poisson_3d", (100,), torch.float64, 4),
+             ("sgs", "poisson_3d_27pt", (80,), torch.float32, 4),
+             ("ilu0", "poisson_3d_27pt", (80,), torch.float32, 4)]
+
+
+@pytest.mark.parametrize("kind,name,args,dtype,sweeps", RULE_RING,
+                         ids=[f"{k}-{n}{a}-{str(d)[6:]}-s{s}" for k, n, a, d, s in RULE_RING])
+def test_rule_gives_large_shapes_the_ring_kernel(cuda_device, kind, name, args, dtype, sweeps):
+    pre, fused, plain = _pre(kind, name, args, dtype, sweeps, cuda_device)
+    assert T.variant(pre, cuda_device) == "ring"
+    _check_apply(pre, fused, plain, "sgs_apply" if kind == "sgs" else "tri_pair_apply", dtype,
+                 cuda_device)
+
+
+def test_wrong_sign_offsets_keep_the_per_sweep_kernels(cuda_device):
+    """Strict factors on the wrong side (U's offsets in the forward
+    direction): neither ordered walk takes them, so the rule names the
+    per-sweep kernels, bit for bit the plain version."""
+    pre = PaddedSGS.from_dia(_dia("poisson_3d", (40,), torch.float64, cuda_device), sweeps=4)
+    swapped = dataclasses.replace(pre, p_lower=pre.p_upper, p_upper=pre.p_lower)
+    assert T.variant(swapped, cuda_device) == "per-sweep"
+    _check_apply(swapped, T.sgs_apply_fused, T.sgs_apply_plain, "sgs_apply", torch.float64,
+                 cuda_device)
+
+
+def test_ring_applies_repeat(cuda_device):
+    """20 back-to-back applies of the ring kernel on a shape with many
+    chunks in flight (poisson_3d(100): 250 chunks a direction in float32,
+    499 in float64) give the same bits as one another and as the plain
+    version: no stale level read through L1, no slot reused too soon."""
+    for kind, dtype in (("sgs", torch.float32), ("ic0", torch.float64)):
+        pre, _, plain = _pre(kind, "poisson_3d", (100,), dtype, 4, cuda_device)
+        rp = _padded_rhs(pre, dtype, cuda_device, seed=3)
+        want = plain(pre, rp)
+        outs = [T._apply_variant(pre, rp, "ring") for _ in range(20)]
+        torch.cuda.synchronize()
+        assert all(bits_equal(z, want) for z in outs)
+
+
+def test_ring_apply_in_a_cuda_graph(cuda_device):
+    """An apply captured in a CUDA graph: the tickets and flags are zeroed
+    on the stream, so each of 3 replays gives the plain version's bits."""
+    pre = PaddedSGS.from_dia(_dia("poisson_3d", (100,), torch.float64, cuda_device), sweeps=4)
+    assert T.variant(pre, cuda_device) == "ring"
+    rp = _padded_rhs(pre, torch.float64, cuda_device, seed=4)
+    want = T.sgs_apply_plain(pre, rp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        T.sgs_apply_fused(pre, rp)  # warm: the opt-in and the occupancy query
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z = T.sgs_apply_fused(pre, rp)
+    for _ in range(3):
+        z.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bits_equal(z, want)
+
+
+def test_ring_replay_matches_the_kernel(cuda_device):
+    """The PyTorch replay of the ring kernel at the kernel's own chunks and
+    rings, on the card, equal to the kernel's result."""
+    for kind in ("sgs", "ilu0"):
+        pre, _, _ = _pre(kind, "poisson_3d", (40,), torch.float32, 4, cuda_device)
+        rp = _padded_rhs(pre, torch.float32, cuda_device, seed=5)
+        plan = T._ring_plan(T._offsets(pre.p_lower), T._offsets(pre.p_upper), pre.n_total, 4,
+                            kind == "sgs", False, 0)
+        replay = T.sgs_apply_ring_plain if kind == "sgs" else T.tri_pair_apply_ring_plain
+        assert bits_equal(replay(pre, rp, plan), T._apply_variant(pre, rp, "ring"))
 
 
 # -- general patterns: K6 (ELL), K7 and K8 (W-SELL) -------------------------------

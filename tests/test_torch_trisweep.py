@@ -350,6 +350,109 @@ def test_a_ring_one_chunk_short_reads_unwritten_rows(monkeypatch):
     assert not torch.equal(T.sgs_apply_windowed_plain(tp, rp, 128, 32), ref)
 
 
+# -- the ring kernel's decomposition (csrc/trisweep.cu ring_kernel) -------------
+# sgs_apply_ring_plain / tri_pair_apply_ring_plain replay the kernel's chunk
+# tickets, rings, slot reuse and guard reads on the CPU.  Chunks of 32 and 64
+# rows make the 3-D reach (144 rows at poisson_3d(12), 111 at
+# poisson_3d_27pt(10)) span several chunks; rings sized for 0 and 3 CTAs in
+# flight.
+
+RING_SYSTEMS = [("poisson_3d", (12,)), ("poisson_3d_27pt", (10,))]
+RING_PLANS = [(0, 32, 32), (3, 64, 32)]  # (grid, chunk_l, chunk_u)
+
+
+def _hold_ring(pre, rp, replay, plain, want, dtype):
+    """Every plan bit for bit the plain version, guard rows 0, and the
+    logical rows against the JAX kernel's ``want``."""
+    ref = plain(pre, rp)
+    for grid, chunk_l, chunk_u in RING_PLANS:
+        plan = T.ring_plan(pre, grid, chunk_l, chunk_u)
+        assert plan.ring_rows % max(chunk_l, chunk_u) == 0
+        got = replay(pre, rp, plan)
+        assert torch.equal(got, ref), (grid, chunk_l, chunk_u)
+        _assert_guards_zero(pre, got)
+    _assert_close(got[pre.lead:pre.lead + pre.shape[0]].numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("sweeps", SWEEPS)
+@pytest.mark.parametrize("kind", ["sgs", "ic0", "ilu0"])
+@pytest.mark.parametrize("name,args", RING_SYSTEMS, ids=[f"{n}{a}" for n, a in RING_SYSTEMS])
+def test_ring_replay_matches_plain_and_jax(dtype, name, args, kind, sweeps):
+    jcsr, jdia, tdia = _system(name, args, dtype)
+    r = _rhs(tdia.shape[0], dtype, seed=6)
+    if kind == "sgs":
+        jp = JaxPaddedSGS.from_dia(jdia, sweeps=sweeps)
+        want = np.asarray(jp.p_lower.from_padded(
+            jax_sgs_fused(jp, jp.p_lower.to_padded(jnp.asarray(r)), interpret=True)))
+        pre = PaddedSGS.from_dia(tdia, sweeps=sweeps)
+        fns = (T.sgs_apply_ring_plain, T.sgs_apply_plain)
+    else:
+        jpre = jsmm.get_preconditioner(jcsr, kind, method="jacobi", sweeps=sweeps)
+        jpair = JaxPaddedTriPair.from_factors(jpre.lower, jpre.upper, jdia)
+        want = np.asarray(jpair.p_lower.from_padded(
+            jax_tri_pair_fused(jpair, jpair.p_lower.to_padded(jnp.asarray(r)), interpret=True)))
+        if kind == "ic0":
+            tpre = interop.ic0_from_numpy(tri_fields(jpre.lower), tri_fields(jpre.upper), "cpu")
+        else:
+            tpre = interop.ilu0_from_numpy(tri_fields(jpre.lower), tri_fields(jpre.upper),
+                                           jpre.shift, "cpu")
+        pre = PaddedTriPair.from_factors(tpre.lower, tpre.upper, tdia)
+        fns = (T.tri_pair_apply_ring_plain, T.tri_pair_apply_plain)
+    _hold_ring(pre, _padded(pre, r), *fns, want, dtype)
+
+
+@pytest.mark.parametrize("offsets", [(0, 1), (-1, 0), (0,)],
+                         ids=["upper_only", "lower_only", "diagonal"])
+def test_ring_replay_one_sided_and_diagonal(offsets):
+    """An empty strict part is a scale in one level, with no ring; the other
+    side still walks its chunks."""
+    n = 3000
+    rng = np.random.default_rng(0)
+    rows = {0: rng.uniform(2.0, 3.0, n), 1: rng.uniform(-1.0, -0.5, n),
+            -1: rng.uniform(-1.0, -0.5, n)}
+    diags = np.stack([rows[o] for o in offsets]).astype(np.float32)
+    tdia = interop.dia_from_numpy(diags, offsets, (n, n), len(offsets) * n, "cpu")
+    tp = PaddedSGS.from_dia(tdia, sweeps=4)
+    rp = _padded(tp, rng.standard_normal(n).astype(np.float32))
+    plan = T.ring_plan(tp, 2, 32, 32)
+    assert plan.ring_levels == (0 if offsets == (0,) else 3)
+    assert torch.equal(T.sgs_apply_ring_plain(tp, rp, plan), T.sgs_apply_plain(tp, rp))
+
+
+def test_a_ring_one_chunk_short_reads_nan(monkeypatch):
+    """The rings start as NaN and a slot holding another chunk reads NaN, so
+    a ring one chunk too short for the reach and a chunk (the least the C
+    entry takes) shows in the result: the check that the replay would catch
+    a kernel whose ring is too short or whose slot is reused too soon."""
+    _, _, tdia = _system("poisson_3d", (12,), np.float64)
+    tp = PaddedSGS.from_dia(tdia, sweeps=4)
+    rp = _padded(tp, _rhs(tdia.shape[0], np.float64))
+    ref = T.sgs_apply_plain(tp, rp)
+    assert T.ring_chunks(144, 0, 32) == 6
+    assert torch.equal(T.sgs_apply_ring_plain(tp, rp, T.ring_plan(tp, 0, 32, 32)), ref)
+    right = T.ring_chunks
+    monkeypatch.setattr(T, "ring_chunks",
+                        lambda reach, grid, chunk=T.CHUNK: right(reach, grid, chunk) - 1)
+    got = T.sgs_apply_ring_plain(tp, rp, T.ring_plan(tp, 0, 32, 32))
+    rows = slice(tp.lead, tp.lead + tp.shape[0])
+    assert bool(torch.isnan(got[rows]).any())
+
+
+def test_wrong_sign_offsets_keep_the_per_sweep_kernels():
+    """Strict offsets on the wrong side for their direction (U's in the
+    forward one): neither ordered walk takes them, so the rule names the
+    per-sweep kernels, and the window tile is 0."""
+    offsets = _stencil_offsets(243, 3, 7)
+    n_total = (-(-max(offsets) // 128) * 2 + -(-243 ** 3 // 128)) * 128
+    for sgs in (True, False):
+        right = _Layout(offsets, n_total, 4, sgs)
+        wrong = _Layout(offsets, n_total, 4, sgs)
+        wrong.p_lower, wrong.p_upper = right.p_upper, right.p_lower
+        assert T.variant_of(right, 132, 4) == "ring"
+        assert T.variant_of(wrong, 132, 4) == "per-sweep"
+        assert T.window_tile(wrong, 132, 4) == 0
+
+
 class _Factor:
     def __init__(self, offsets):
         self.offsets = tuple(offsets)
@@ -380,7 +483,7 @@ def _stencil_offsets(m, dims, points):
     (300, 2, 5, 4, 4, True),                                # many tiles of one chunk
     (243, 3, 7, 4, 4, False), (243, 3, 7, 2, 8, False),     # rings over 227 KB
     (128, 3, 27, 4, 4, False),                              # halo 3 tiles deep
-    (40, 3, 7, 4, 4, False), (40, 3, 7, 4, 8, False),       # halo 4.7 tiles
+    (40, 3, 7, 4, 4, True), (40, 3, 7, 4, 8, False),        # 4.7 tiles: 23 / 46 KB a CTA
     (243, 3, 7, 1, 8, True), (128, 3, 27, 1, 8, True),      # no sweep: one level
     (40, 3, 7, 2, 4, True), (40, 3, 7, 2, 8, True),         # halo 1.6 tiles
     (100, 3, 7, 2, 4, True), (100, 3, 7, 4, 4, False),      # halo 1.2 / 3.7 tiles
@@ -397,5 +500,44 @@ def test_window_rule_at_full_size(m, dims, points, sweeps, itemsize, window):
     tile = T.window_tile(_Layout(offsets, n_total, sweeps), 132, itemsize)
     assert (tile > 0) == window
     if window:  # whole chunks, at most one tile per SM, the halo under two tiles
-        assert tile % T.CHUNK == 0 and -(-n_total // tile) <= 132
-        assert (sweeps - 1) * reach < 2 * tile
+        assert tile % T.CHUNK == 0 and -(-n_total // tile) <= 132  # or a small window
+        halo = (sweeps - 1) * reach
+        assert halo < 2 * tile or (tile == T.CHUNK and (tile + halo) * itemsize <= 32768)
+
+
+@pytest.mark.parametrize("m,dims,points,sweeps,itemsize,variant", [
+    (1414, 2, 5, 4, 4, "window"),                                       # the bench system
+    (243, 3, 7, 4, 4, "ring"), (243, 3, 7, 4, 8, "ring"), (243, 3, 7, 2, 8, "ring"),
+    (128, 3, 27, 4, 4, "ring"),                                         # 13 diagonals resident
+    (128, 3, 27, 4, 8, "per-sweep"),                                    # read at every level
+    (80, 3, 27, 4, 4, "ring"), (80, 3, 27, 2, 4, "window"),             # 513 chunks
+    (100, 3, 7, 4, 8, "ring"), (100, 3, 7, 4, 4, "ring"),               # 499 / 250 chunks
+    (96, 3, 7, 4, 4, "ring"),                                           # 221 chunks
+    (88, 3, 7, 4, 4, "per-sweep"), (88, 3, 7, 4, 8, "ring"),            # 171 / 341
+    (72, 3, 7, 4, 4, "per-sweep"), (72, 3, 7, 4, 8, "per-sweep"),       # 94 / 188
+    (64, 3, 7, 4, 4, "per-sweep"), (64, 3, 7, 2, 4, "per-sweep"),       # 66 chunks
+    (64, 3, 7, 4, 8, "per-sweep"),                                      # 132 chunks
+    (40, 3, 7, 4, 8, "per-sweep"), (40, 3, 7, 2, 4, "window"),
+    (40, 3, 7, 4, 4, "window"),                                         # a 23 KB window
+    (24, 3, 27, 2, 8, "per-sweep"),
+])
+def test_variant_rule_at_full_size(m, dims, points, sweeps, itemsize, variant):
+    """The three-way rule at the card's 132 SMs: the window kernels, the
+    ring kernel from 1.5 chunks an SM (198) where its diagonals stay in
+    shared memory, else the per-sweep kernels."""
+    offsets = _stencil_offsets(m, dims, points)
+    reach = max(offsets)
+    n_total = (-(-reach // 128) * 2 + -(-m ** dims // 128)) * 128
+    layout = _Layout(offsets, n_total, sweeps)
+    assert T.variant_of(layout, 132, itemsize) == variant
+    assert (T.window_tile(layout, 132, itemsize) > 0) == (variant == "window")
+
+
+def test_ring_chunk_and_residency():
+    """The ring kernel's chunks and its general instantiation's shared
+    memory, as csrc/trisweep.cu sizes them."""
+    assert [T.ring_chunk(nd, 4, 4) for nd in (1, 3, 4, 5, 13)] == [4096] * 3 + [1024] * 2
+    assert [T.ring_chunk(nd, 4, 8) for nd in (3, 13)] == [2048, 1024]
+    assert T.ring_chunk(3, 1, 4) == 1024  # a scale: the general instantiation
+    assert T._ring_resident(13, 4) and not T._ring_resident(13, 8)
+    assert T._ring_resident(24, 4) and not T._ring_resident(25, 4)

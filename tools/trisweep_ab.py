@@ -5,35 +5,41 @@ checkout's two variants and tiles against each other.
 
     python3 tools/trisweep_ab.py PARENT.cu [rounds] [sweeps] [SYSTEM ...]
 
-PARENT.cu is an earlier version of the file with the per-sweep kernels and
-no tile argument (for example the parent commit's, unpacked with ``git
-archive`` into the git-ignored ``chip_checkout/``).  Both are built side by
-side with nvcc, the port's flags (``ops/_build.py``) and ``-Xptxas -v`` into
-the git-ignored ``sparse_matrix_math_tpu_torch/build/trisweep_ab/``; then
+PARENT.cu is an earlier version of the file whose C entries end in ``tile,
+stream``, as they did before the ring kernel (window kernels at tile > 0,
+per-sweep kernels at 0): for example the parent commit's, unpacked with
+``git archive`` into the git-ignored ``chip_checkout/``.  Both are built side by side with nvcc,
+the port's flags (``ops/_build.py``) and ``-Xptxas -v`` into the git-ignored
+``sparse_matrix_math_tpu_torch/build/trisweep_ab/``, and the checkout's
+library is opted in through its own ``smm_trisweep_prepare``; then
 
 * ptxas's registers, shared memory and spill stores of every kernel;
 * on each case, every call's result held bit for bit to the plain
   version's (``ops/trisweep.py``), then each timed from a captured CUDA graph
   of 20 applies (``chip_smoke.graph_ms``) in the order parent, this,
   alternatives, alternatives reversed, this, parent in each of ``rounds``
-  rounds (3 by default).  "this" is the checkout's entry at the tile the
-  rule of ``ops/trisweep.py:window_tile`` picks; the alternatives are the
-  checkout's other choices on the same inputs: ``per_sweep`` (tile 0) where
-  the rule picks the window kernels, ``window_split`` (the layout's chunks
-  split over the SMs, the halo not considered) where it picks the per-sweep
-  kernels, and ``window_halo_tile`` (a tile as long as the halo) where the
-  halo outgrows the split; an alternative whose shared memory the C entry
-  refuses is left out;
+  rounds (3 by default).  "this" is the checkout's entry at the variant the
+  rule of ``ops/trisweep.py:variant_of`` picks; the alternatives are the
+  checkout's other variants on the same inputs: ``ring`` (the ring kernel at
+  its plan from the library's own occupancy query), ``window_split`` (the
+  layout's chunks split over the SMs, the halo not considered) and
+  ``window_halo_tile`` (a tile as long as the halo, where the halo outgrows
+  the split), and ``per_sweep`` (the per-sweep kernels, tile -1), each where
+  the rule picks another; an alternative whose shared memory the C entry
+  refuses is left out.  The parent runs at the window kernels' tile where
+  the checkout's rule gives one, else with its per-sweep kernels;
 * the checkout's wrapper on the same inputs, timed as ``chip_smoke.median_ms``
   times it (CUDA events around back-to-back calls), and the host's
   microseconds per call of the wrapper and of the bare C entry.
 
 Cases (``sweeps`` 4 by default), in float32 and float64: SGS, IC(0) and
 ILU(0) on ``poisson_2d(1414)``, SGS and ILU(0) on
-``convection_diffusion_2d(1414)``, SGS on ``poisson_3d(243)`` and
-``poisson_3d_27pt(128)`` (rings over the shared memory), SGS and IC(0) on
+``convection_diffusion_2d(1414)``, SGS, IC(0) and ILU(0) on ``poisson_3d(243)``
+and ``poisson_3d_27pt(128)`` (rings over the shared memory), SGS and IC(0) on
 ``poisson_3d(40)`` and ``poisson_3d(100)``, SGS on ``poisson_3d(64)`` and
-``poisson_3d_27pt(24)`` (halos longer than the split tile).  SYSTEM
+``poisson_3d_27pt(24)`` (halos longer than the split tile), SGS on
+``poisson_3d(72)``, ``(88)`` and ``(96)`` (0.7-3.3 of the ring kernel's
+chunks an SM, around the rule's threshold).  SYSTEM
 arguments (e.g. ``poisson_3d(40)``) keep only those systems.  Each case
 prints the variant and tile the rule takes, the bound (each input read
 once, z written once) and the traffic of the two designs.  Prints the
@@ -44,6 +50,7 @@ and nvcc.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -63,21 +70,38 @@ _OUT = os.path.join(_ROOT, "sparse_matrix_math_tpu_torch", "build", "trisweep_ab
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # r, invd(_l), diag | invd_u, ld, l_offsets, nd_l, ud, u_offsets, nd_u, w0, w1,
-# out, sweeps, n_total, lead, n_rows, [tile,] stream
-_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL]
+# out, sweeps, n_total, lead, n_rows, tile, [ring, ring_rows, sync, grid,]
+# stream
+_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _LL]
 
 
-def entry(dll, sgs: bool, dtype_name: str, with_tile: bool):
+def entry(dll, sgs: bool, dtype_name: str, parent: bool):
     suffix = "f32" if dtype_name == "float32" else "f64"
     fn = getattr(dll, f"smm_{'sgs' if sgs else 'tri_pair'}_apply_{suffix}")
-    fn.argtypes = _ARGS + ([_LL] if with_tile else []) + [_P]
+    fn.argtypes = _ARGS + ([] if parent else [_P, _I, _P, _I]) + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def caller(torch, fn, pre, rp, sgs: bool, tile):
-    """A call of the bare C entry on fixed buffers (a graph replays it);
-    ``tile`` None for an entry without the argument."""
+def ring_plan_of(dll, T, pre, sgs: bool, f64: bool, sms: int):
+    """The ring kernel's plan for ``pre`` from the checkout library's own
+    occupancy query (``ops/trisweep.py:_ring_plan`` asks the port's)."""
+    blocks, chunk_l, chunk_u = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    lower, upper = T._offsets(pre.p_lower), T._offsets(pre.p_upper)
+    code = dll.smm_trisweep_ring_blocks_per_sm(int(f64), int(sgs), len(lower), len(upper),
+                                               int(pre.sweeps), ctypes.byref(blocks),
+                                               ctypes.byref(chunk_l), ctypes.byref(chunk_u))
+    if code != 0:
+        raise RuntimeError(f"occupancy query: CUDA error {code}")
+    grid = min(-(-pre.n_total // min(chunk_l.value, chunk_u.value)), blocks.value * sms)
+    return T._ring_layout(lower, upper, int(pre.sweeps), grid, chunk_l.value, chunk_u.value)
+
+
+def caller(torch, fn, pre, rp, sgs: bool, tile: int, plan=None, parent: bool = False,
+           key: str = ""):
+    """A call of the bare C entry on fixed buffers (a graph replays it): the
+    parent's at ``tile``, or the checkout's at ``tile`` (0 with the ring
+    kernel's ``plan``)."""
     first, second = ((pre.inv_diag_p, pre.diag_p) if sgs
                      else (pre.inv_diag_l_p, pre.inv_diag_u_p))
     facs = []
@@ -89,17 +113,28 @@ def caller(torch, fn, pre, rp, sgs: bool, tile):
                          torch.tensor(p.offsets, dtype=torch.int32).numpy(), len(p.offsets)))
     (ld, lo, nl), (ud, uo, nu) = facs
     w0, w1, out = (torch.empty_like(rp) for _ in range(3))
-    tail = [] if tile is None else [tile]
+    tail, keep = [], []
+    if not parent:
+        ring = sync = None
+        if plan is not None:
+            ring = torch.empty(max(plan.ring_levels * plan.ring_rows, 1), dtype=rp.dtype,
+                               device=rp.device)
+            sync = torch.empty(2 + 2 * -(-pre.n_total // 1024), dtype=torch.int32,
+                               device=rp.device)
+        tail = [None if ring is None else ring.data_ptr(), 0 if plan is None else plan.ring_rows,
+                None if sync is None else sync.data_ptr(), 0 if plan is None else plan.grid]
+        keep = [ring, sync]  # alive as long as the call
 
     def call():
         code = fn(rp.data_ptr(), first.data_ptr(), second.data_ptr(), ld, lo.ctypes.data, nl,
                   ud, uo.ctypes.data, nu, w0.data_ptr(), w1.data_ptr(), out.data_ptr(),
-                  int(pre.sweeps), pre.n_total, pre.lead, pre.shape[0], *tail,
+                  int(pre.sweeps), pre.n_total, pre.lead, pre.shape[0], tile, *tail,
                   torch.cuda.current_stream().cuda_stream)
         if code != 0:
-            raise RuntimeError(f"CUDA error {code}")
+            raise RuntimeError(f"{key} (tile {tile}): CUDA error {code}")
         return out
 
+    call.keep = keep
     return call
 
 
@@ -132,6 +167,11 @@ def main() -> int:
         for name, info in b["ptxas"].items():
             print(f"ptxas {key} {name}: {info}")
     dlls = {k: ctypes.CDLL(v["lib"]) for k, v in built.items()}
+    this_dll = dlls["this"]
+    this_dll.smm_trisweep_prepare.argtypes = []
+    this_dll.smm_trisweep_ring_blocks_per_sm.argtypes = [_I, _I, _I, _I, _I, _P, _P, _P]
+    if this_dll.smm_trisweep_prepare() != 0:
+        raise RuntimeError("smm_trisweep_prepare failed")
     result = {"device": smi, "parent": parent, "sweeps": sweeps,
               "ptxas": {k: v["ptxas"] for k, v in built.items()}, "cases": {}}
     dev = torch.device("cuda", 0)
@@ -139,10 +179,13 @@ def main() -> int:
     systems = [("poisson_2d(1414)", smm.poisson_2d, (1414,), ("sgs", "ic0", "ilu0")),
                ("convection_diffusion_2d(1414)", smm.convection_diffusion_2d, (1414,),
                 ("sgs", "ilu0")),
-               ("poisson_3d(243)", smm.poisson_3d, (243,), ("sgs",)),
-               ("poisson_3d_27pt(128)", smm.poisson_3d_27pt, (128,), ("sgs",)),
+               ("poisson_3d(243)", smm.poisson_3d, (243,), ("sgs", "ic0", "ilu0")),
+               ("poisson_3d_27pt(128)", smm.poisson_3d_27pt, (128,), ("sgs", "ic0", "ilu0")),
                ("poisson_3d(40)", smm.poisson_3d, (40,), ("sgs", "ic0")),
                ("poisson_3d(64)", smm.poisson_3d, (64,), ("sgs",)),
+               ("poisson_3d(72)", smm.poisson_3d, (72,), ("sgs",)),
+               ("poisson_3d(88)", smm.poisson_3d, (88,), ("sgs",)),
+               ("poisson_3d(96)", smm.poisson_3d, (96,), ("sgs",)),
                ("poisson_3d(100)", smm.poisson_3d, (100,), ("sgs", "ic0")),
                ("poisson_3d_27pt(24)", smm.poisson_3d_27pt, (24,), ("sgs",))]
     if only:
@@ -168,22 +211,31 @@ def main() -> int:
                 rp[pre.lead:pre.lead + pre.shape[0]] = (
                     torch.rand(pre.shape[0], generator=gen, device=dev, dtype=torch.float64)
                     - 0.5).to(dtype)
+                variant = T.variant_of(pre, sms, rp.element_size())
                 tile = T.window_tile(pre, sms, rp.element_size())
-                variant = "window" if tile else "per-sweep"
-                this_fn = entry(dlls["this"], sgs, name, True)
-                calls = {"parent": caller(torch, entry(dlls["parent"], sgs, name, False), pre,
-                                          rp, sgs, None),
-                         "this": caller(torch, this_fn, pre, rp, sgs, tile)}
+                f64 = dtype == torch.float64
+                this_fn = entry(this_dll, sgs, name, False)
+                plan = ring_plan_of(this_dll, T, pre, sgs, f64, sms)
+                this_tile = {"window": tile, "ring": 0, "per-sweep": -1}[variant]
+                calls = {"parent": caller(torch, entry(dlls["parent"], sgs, name, True), pre,
+                                          rp, sgs, tile, parent=True, key="parent"),
+                         "this": caller(torch, this_fn, pre, rp, sgs, this_tile,
+                                        plan if variant == "ring" else None, key="this")}
                 split = -(-pre.n_total // (T.CHUNK * sms)) * T.CHUNK
                 halo = max((T._levels(o, sweeps) - 1) * T._reach(o)
                            for o in (T._offsets(pre.p_lower), T._offsets(pre.p_upper)))
                 halo_tile = -(-halo // T.CHUNK) * T.CHUNK
-                alternatives = {"per_sweep": 0} if tile else {"window_split": split}
-                if halo_tile > split:
-                    alternatives["window_halo_tile"] = halo_tile
+                alternatives = {} if variant == "ring" else {"ring": 0}
+                if variant != "window":
+                    alternatives["window_split"] = split
+                    if halo_tile > split:
+                        alternatives["window_halo_tile"] = halo_tile
+                if variant != "per-sweep":
+                    alternatives["per_sweep"] = -1
                 refused = []
                 for key, alt in alternatives.items():
-                    call = caller(torch, this_fn, pre, rp, sgs, alt)
+                    call = caller(torch, this_fn, pre, rp, sgs, alt, plan if alt == 0 else None,
+                                  key=key)
                     try:
                         call()
                     except RuntimeError:  # the C entry's shared-memory check
@@ -221,7 +273,8 @@ def main() -> int:
                         "bound_bytes": nbytes,
                         "traffic_bound_ms": {v: bound_ms(traffic_bytes(pre, sgs,
                                                                        rp.element_size(), v))
-                                             for v in ("window", "per-sweep")},
+                                             for v in ("window", "ring", "per-sweep")},
+                        "ring_plan": dataclasses.asdict(plan),
                         "ms": readings, "host_us_per_call": host_us}
                 med = {k: statistics.median(v) for k, v in readings.items()}
                 case["median_ms"] = med
