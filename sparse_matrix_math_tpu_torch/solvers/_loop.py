@@ -6,12 +6,17 @@ an iteration whose condition is false is frozen (every state tensor kept
 bit for bit by ``torch.where``, ``k`` not advanced), so the iteration count
 and the state equal the JAX loop's exactly while the host reads the
 condition once per chunk.  Every host read
-goes through :func:`read` and is counted in :data:`host_syncs`.
+goes through :func:`read`, :func:`running` or :func:`to_host`, is counted in
+:data:`host_syncs` and, while a profiler records, opens an ``smm.host_sync``
+span; each pass of :func:`chunk` opens an ``smm.iteration`` span
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import recording, span
 
 CHUNK = 32
 
@@ -22,12 +27,33 @@ host_syncs = {"count": 0}
 def read(*scalars: torch.Tensor) -> list:
     """Python values of 0-d device tensors, in one transfer."""
     host_syncs["count"] += 1
-    return torch.stack([s.to(torch.float64) for s in scalars]).tolist()
+    with span("host_sync"):
+        return torch.stack([s.to(torch.float64) for s in scalars]).tolist()
 
 
 def running(active: torch.Tensor) -> bool:
     host_syncs["count"] += 1
-    return bool(active)
+    with span("host_sync"):
+        return bool(active)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to the host, in one transfer."""
+    host_syncs["count"] += 1
+    with span("host_sync"):
+        return t.cpu()
+
+
+def chunk():
+    """The passes of one chunk: ``range(CHUNK)``, each pass inside an
+    ``smm.iteration`` span while a profiler records."""
+    return _traced_chunk() if recording() else range(CHUNK)
+
+
+def _traced_chunk():
+    for i in range(CHUNK):
+        with span("iteration"):
+            yield i
 
 
 def new_trace(first: torch.Tensor, maxiter: int, record: bool):

@@ -31,6 +31,7 @@ from ..precond.preconditioners import (
     JacobiPreconditioner,
     SGSPreconditioner,
 )
+from ..utils.profiling import span, spanned
 from .bicg_symmetric import bicg_symmetric_core
 from .bicgstab import bicgstab_core
 from .cg import cg_core, pcg_core
@@ -86,7 +87,8 @@ def padded_solve(core_name: str, a: DIAMatrix, b: torch.Tensor, x0: torch.Tensor
     pdia = pad_dia(a)
 
     def matvec(v):
-        return dia_spmv_padded(pdia, v)
+        with span("spmv"):
+            return dia_spmv_padded(pdia, v)
 
     def dotfn(u, v):
         return torch.dot(u, v)
@@ -95,6 +97,7 @@ def padded_solve(core_name: str, a: DIAMatrix, b: torch.Tensor, x0: torch.Tensor
         apply_ = cheby_apply_fn(matvec, cheby.lmin, cheby.lmax, cheby.degree)
     else:
         apply_ = _padded_apply(preconditioner, a, pdia)
+    apply_ = spanned("precond_apply", apply_)
     bp = pdia.to_padded(b)
     x0p = pdia.to_padded(x0)
     if core_name == "bicgstab":
@@ -113,9 +116,11 @@ def padded_preconditioner(pre, a: DIAMatrix):
     :func:`eligible` admits, re-laid against ``a``, or a padded one."""
     if isinstance(pre, SGSPreconditioner):
         # re-lay the truncated-sweep apply into the padded layout
-        pre = PaddedSGS.from_dia(a, sweeps=pre.fwd.sweeps)
+        with span("precond_build"):
+            pre = PaddedSGS.from_dia(a, sweeps=pre.fwd.sweeps)
     elif isinstance(pre, (IC0Preconditioner, ILU0Preconditioner)):
-        pre = PaddedTriPair.from_factors(pre.lower, pre.upper, a)
+        with span("precond_build"):
+            pre = PaddedTriPair.from_factors(pre.lower, pre.upper, a)
     return pre if pre.dtype == a.dtype else pre.astype(a.dtype)
 
 

@@ -26,6 +26,7 @@ import torch
 from ..formats.stencil import GridStencilMatrix
 from ..precond.cheby_poly import ChebyshevPreconditioner, cheby_apply_fn
 from ..precond.preconditioners import JacobiPreconditioner
+from ..utils.profiling import span, spanned
 from .bicg_symmetric import bicg_symmetric_core
 from .bicgstab import bicgstab_core
 from .cg import cg_core, pcg_core
@@ -65,7 +66,10 @@ def stencil_solve(core_name: str, a: GridStencilMatrix, b: torch.Tensor, x0: tor
                          "generic path")
     if a.dtype != b.dtype:
         a = a.astype(b.dtype)  # b carries the harmonized solve dtype
-    matvec = a.apply_grid
+
+    def matvec(v):
+        with span("spmv"):
+            return a.apply_grid(v)
 
     def dotfn(u, v):
         return torch.sum(u * v)
@@ -78,6 +82,7 @@ def stencil_solve(core_name: str, a: GridStencilMatrix, b: torch.Tensor, x0: tor
                                 preconditioner.degree)
     else:
         apply_ = None
+    apply_ = spanned("precond_apply", apply_)
 
     bg, x0g = a.to_grid(b), a.to_grid(x0)
     if core_name == "bicgstab":

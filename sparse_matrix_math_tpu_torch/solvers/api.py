@@ -34,6 +34,7 @@ import torch
 
 from ..formats.csr import CSRMatrix
 from ..precond.preconditioners import get_preconditioner
+from ..utils.profiling import span
 from .bicg_symmetric import bicg_symmetric
 from .bicgstab import bicgstab
 from .cg import conjugate_gradient
@@ -150,12 +151,13 @@ def _build_preconditioner_for(a, a_source, kind, options):
     permuted CSR, and there is no fallback across the permutation."""
     from ..formats.reorder import ReorderedMatrix
 
-    try:
-        return _build_preconditioner(a, kind, options)
-    except ValueError:
-        if a_source is a or isinstance(a, ReorderedMatrix):
-            raise
-        return _build_preconditioner(a_source, kind, options)
+    with span("precond_build"):
+        try:
+            return _build_preconditioner(a, kind, options)
+        except ValueError:
+            if a_source is a or isinstance(a, ReorderedMatrix):
+                raise
+            return _build_preconditioner(a_source, kind, options)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,78 +205,79 @@ def solve(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
     >>> solve(a, b, method="bicgstab", preconditioner="sgs", epsilon=1e-8)
     """
-    cfg = (config or SolverConfig()).replace(**overrides)
-    method = cfg.method.lower()
-    if method not in SOLVERS and method not in _DF64_METHODS:
-        raise ValueError(
-            f"unknown method {cfg.method!r}; options: "
-            f"{sorted(set(SOLVERS) | set(_DF64_METHODS))}")
-    shape = getattr(a, "shape", None)
-    if shape is not None and getattr(b, "ndim", 0) >= 1 and b.shape[0] != shape[0]:
-        # the JAX package fails here with broadcasting's TypeError
-        raise TypeError(f"b has {b.shape[0]} rows; the matrix has {shape[0]}")
-    if method in _DF64_METHODS:
-        return _solve_df64(a, b, x0, cfg, method)
-    a_source = a  # preconditioners factor from the CSR source below
-    if cfg.auto_format and isinstance(a, CSRMatrix):
-        from ..formats import best_format
-        from ..formats.dia import try_dia_from_csr
-        from ..formats.stencil import GridStencilMatrix
+    with span("solve"):
+        cfg = (config or SolverConfig()).replace(**overrides)
+        method = cfg.method.lower()
+        if method not in SOLVERS and method not in _DF64_METHODS:
+            raise ValueError(
+                f"unknown method {cfg.method!r}; options: "
+                f"{sorted(set(SOLVERS) | set(_DF64_METHODS))}")
+        shape = getattr(a, "shape", None)
+        if shape is not None and getattr(b, "ndim", 0) >= 1 and b.shape[0] != shape[0]:
+            # the JAX package fails here with broadcasting's TypeError
+            raise TypeError(f"b has {b.shape[0]} rows; the matrix has {shape[0]}")
+        if method in _DF64_METHODS:
+            return _solve_df64(a, b, x0, cfg, method)
+        a_source = a  # preconditioners factor from the CSR source below
+        if cfg.auto_format and isinstance(a, CSRMatrix):
+            from ..formats import best_format
+            from ..formats.dia import try_dia_from_csr
+            from ..formats.stencil import GridStencilMatrix
 
-        a = best_format(a)
-        if isinstance(a, GridStencilMatrix) and (
-                cfg.matrix_dtype is not None
-                or str(cfg.preconditioner).lower() in _SGS_KINDS + ("ilu0", "ic0")):
-            # these ride the DIA machinery (the bf16 diagonal stream,
-            # PaddedSGS, the padded factor applies); the matrix-free stencil
-            # has no matrix stream to retype and stores no factors: keep DIA
-            dia = try_dia_from_csr(a_source)
-            if dia is not None:
-                a = dia
-    if getattr(b, "ndim", 1) == 2:
-        # a multi-RHS panel: one panel product feeds every column
-        # (solvers/block.py); returns a MultiSolveResult
-        from .block import cg_multi
+            a = best_format(a)
+            if isinstance(a, GridStencilMatrix) and (
+                    cfg.matrix_dtype is not None
+                    or str(cfg.preconditioner).lower() in _SGS_KINDS + ("ilu0", "ic0")):
+                # these ride the DIA machinery (the bf16 diagonal stream,
+                # PaddedSGS, the padded factor applies); the matrix-free stencil
+                # has no matrix stream to retype and stores no factors: keep DIA
+                dia = try_dia_from_csr(a_source)
+                if dia is not None:
+                    a = dia
+        if getattr(b, "ndim", 1) == 2:
+            # a multi-RHS panel: one panel product feeds every column
+            # (solvers/block.py); returns a MultiSolveResult
+            from .block import cg_multi
 
-        if method not in ("cg", "conjugate_gradient"):
-            raise ValueError("multi-RHS b (n, m) is supported for method='cg' (cg_multi); "
-                             "solve each column separately for other methods")
-        precond = None
+            if method not in ("cg", "conjugate_gradient"):
+                raise ValueError("multi-RHS b (n, m) is supported for method='cg' (cg_multi); "
+                                 "solve each column separately for other methods")
+            precond = None
+            if not _is_none(cfg.preconditioner):
+                # every preconditioner apply takes the (n, m) panel
+                precond = _build_preconditioner_for(a, a_source, cfg.preconditioner,
+                                                    cfg.preconditioner_options)
+            return cg_multi(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                            preconditioner=precond, record_residuals=cfg.record_residuals)
+        if cfg.matrix_dtype is not None:
+            return _solve_mixed(a, b, x0, cfg, method)
+        kwargs: Dict[str, Any] = dict(max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
+                                      record_residuals=cfg.record_residuals)
         if not _is_none(cfg.preconditioner):
-            # every preconditioner apply takes the (n, m) panel
-            precond = _build_preconditioner_for(a, a_source, cfg.preconditioner,
-                                                cfg.preconditioner_options)
-        return cg_multi(a, b, x0, max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
-                        preconditioner=precond, record_residuals=cfg.record_residuals)
-    if cfg.matrix_dtype is not None:
-        return _solve_mixed(a, b, x0, cfg, method)
-    kwargs: Dict[str, Any] = dict(max_iterations=cfg.max_iterations, epsilon=cfg.epsilon,
-                                  record_residuals=cfg.record_residuals)
-    if not _is_none(cfg.preconditioner):
-        if method not in _PRECONDITIONABLE:
-            raise ValueError(f"{method} does not take a preconditioner "
-                             "(cg, bicgstab, and gmres do)")
-        kwargs["preconditioner"] = _build_preconditioner_for(
-            a, a_source, cfg.preconditioner, cfg.preconditioner_options)
-    # an escalation returns a DfSolveResult, which has no residual trace: an
-    # explicit record_residuals request stays on the plain path
-    escalatable = cfg.auto_escalate and not cfg.record_residuals
-    if escalatable and method in _ESCALATION:
-        # pre-route: an epsilon below what the working dtype can represent
-        # relative to b (||r|| < eps_mach * ||b|| is no reachable float32
-        # state) skips the doomed n-iteration pass
-        if b.dtype.is_floating_point and torch.finfo(b.dtype).eps > 1e-10:
-            floor_est = float(torch.finfo(b.dtype).eps) * float(torch.linalg.norm(b))
-            if cfg.epsilon < floor_est:
-                esc = _escalated_solve(a_source, b, x0, cfg, method, kwargs, a)
-                if esc is not None:
-                    return esc
-    res = SOLVERS[method](a, b, x0, **kwargs)
-    if escalatable:
-        esc = _maybe_escalate(res, a_source, b, cfg, method, kwargs, a)
-        if esc is not None:
-            return esc
-    return res
+            if method not in _PRECONDITIONABLE:
+                raise ValueError(f"{method} does not take a preconditioner "
+                                 "(cg, bicgstab, and gmres do)")
+            kwargs["preconditioner"] = _build_preconditioner_for(
+                a, a_source, cfg.preconditioner, cfg.preconditioner_options)
+        # an escalation returns a DfSolveResult, which has no residual trace: an
+        # explicit record_residuals request stays on the plain path
+        escalatable = cfg.auto_escalate and not cfg.record_residuals
+        if escalatable and method in _ESCALATION:
+            # pre-route: an epsilon below what the working dtype can represent
+            # relative to b (||r|| < eps_mach * ||b|| is no reachable float32
+            # state) skips the doomed n-iteration pass
+            if b.dtype.is_floating_point and torch.finfo(b.dtype).eps > 1e-10:
+                floor_est = float(torch.finfo(b.dtype).eps) * float(torch.linalg.norm(b))
+                if cfg.epsilon < floor_est:
+                    esc = _escalated_solve(a_source, b, x0, cfg, method, kwargs, a)
+                    if esc is not None:
+                        return esc
+        res = SOLVERS[method](a, b, x0, **kwargs)
+        if escalatable:
+            esc = _maybe_escalate(res, a_source, b, cfg, method, kwargs, a)
+            if esc is not None:
+                return esc
+        return res
 
 
 def _solve_mixed(a, b, x0, cfg: SolverConfig, method: str):

@@ -29,6 +29,7 @@ import torch
 from ..formats.reorder import reorder_hoisted
 from ..ops.spmv import as_operator, matvec_fn
 from ..ops.vector import dot
+from ..utils.profiling import span
 from . import _loop
 from .types import SolveResult, SolverStatus, harmonize_dtypes, resolve_max_iterations
 
@@ -76,7 +77,7 @@ def _inner(matvec, dotfn, x, r, rr, k, eps, eps2, maxiter: int, trace):
 
     active = active_now()
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = matvec(p)
             denom = dotfn(ap, p)
             # serious breakdown (h:2056-2058): the reference exits before the
@@ -114,9 +115,10 @@ def bicg_symmetric_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -
         r_e = b - matvec(x)
         x, rr, k, broke, trace = _inner(matvec, dotfn, x, r_e, dotfn(r_e, r_e), k, eps, eps2,
                                         maxiter, trace)
-        r_t = b - matvec(x)
-        t_rr = dotfn(r_t, r_t)
-        rr_h, t_rr_h, k_h, broke_h = _loop.read(rr, t_rr, k, broke)
+        with span("verify"):
+            r_t = b - matvec(x)
+            t_rr = dotfn(r_t, r_t)
+            rr_h, t_rr_h, k_h, broke_h = _loop.read(rr, t_rr, k, broke)
         claimed = rr_h < eps2_h and not broke_h
         verified = claimed and t_rr_h <= eps2_h
         refuted = claimed and not verified

@@ -29,6 +29,7 @@ import torch
 from ..formats.reorder import reorder_hoisted
 from ..ops.spmv import as_operator, matvec_fn
 from ..ops.vector import dot
+from ..utils.profiling import span
 from . import _loop
 from .types import SolveResult, SolverStatus, harmonize_dtypes, resolve_max_iterations
 
@@ -83,7 +84,7 @@ def _inner(matvec, precond, dotfn, x, r, r0, p, rr0, k, chunk_end: int, eps,
 
     active = active_now()
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = precond(matvec(p))
             denom = dotfn(ap, r0)
             bd1 = torch.abs(denom) < tiny
@@ -133,11 +134,12 @@ def bicgstab_core(matvec, precond, dotfn, b, x0, eps, maxiter: int,
             matvec, precond, dotfn, x, r, r0, p, rr0, k, min(k_h + _ROUND, maxiter),
             eps, explode_at, tiny, trace, maxiter,
         )
-        r_t = precond(b - matvec(x))
-        t_rr = dotfn(r_t, r_t)
-        t_norm = torch.sqrt(t_rr)
-        res_h, t_norm_h, k_h, bd_h, explode_h, best_h = _loop.read(
-            res_norm, t_norm, k, bd, explode_at, best_norm)
+        with span("verify"):
+            r_t = precond(b - matvec(x))
+            t_rr = dotfn(r_t, r_t)
+            t_norm = torch.sqrt(t_rr)
+            res_h, t_norm_h, k_h, bd_h, explode_h, best_h = _loop.read(
+                res_norm, t_norm, k, bd, explode_at, best_norm)
         k_h = int(k_h)
         claimed = res_h <= eps_h
         verified = claimed and t_norm_h <= eps_h

@@ -268,7 +268,7 @@ def _cg_multi_loop(pn: _Panel, b, x0, epsilon, maxiter: int, record: bool) -> Mu
 
         go = go_now()
         while _loop.running(go):
-            for _ in range(_loop.CHUNK):
+            for _ in _loop.chunk():
                 loop_counts["steps"] += 1
                 active = (status == RUNNING) & ~broken & go
                 ap = matvec(p)

@@ -28,6 +28,7 @@ import torch
 from ..formats.reorder import reorder_hoisted
 from ..ops.spmv import as_operator, matvec_fn
 from ..ops.vector import dot
+from ..utils.profiling import span
 from . import _loop
 from .types import SolveResult, SolverStatus, harmonize_dtypes, resolve_max_iterations
 
@@ -92,7 +93,7 @@ def _cg_inner(matvec, dotfn, precond, x, r, rr, k, eps2, maxiter, trace):
 
     active = active_now()
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = matvec(p)
             alpha = torch.where(active, rz / dotfn(ap, p), 0)
             x = torch.where(active, x + alpha * p, x)
@@ -132,9 +133,10 @@ def _cg_outer(matvec, dotfn, precond, b, x0, eps, maxiter: int, record: bool) ->
         r_e = b - matvec(x)
         x, rr, k, trace = _cg_inner(matvec, dotfn, precond, x, r_e, dotfn(r_e, r_e),
                                     k, eps2, maxiter, trace)
-        r_t = b - matvec(x)
-        t_rr = dotfn(r_t, r_t)
-        rr_h, t_rr_h, k_h = _loop.read(rr, t_rr, k)
+        with span("verify"):
+            r_t = b - matvec(x)
+            t_rr = dotfn(r_t, r_t)
+            rr_h, t_rr_h, k_h = _loop.read(rr, t_rr, k)
         claimed = rr_h < eps2_h
         verified = claimed and t_rr_h < eps2_h
         refuted = claimed and not verified

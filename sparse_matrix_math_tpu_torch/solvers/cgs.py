@@ -34,6 +34,7 @@ import torch
 from ..formats.reorder import reorder_hoisted
 from ..ops.spmv import as_operator, matvec_fn
 from ..ops.vector import dot
+from ..utils.profiling import span
 from . import _loop
 from .types import SolveResult, SolverStatus, harmonize_dtypes, resolve_max_iterations
 
@@ -83,7 +84,7 @@ def _inner(matvec, dotfn, x, r, rr0, k, eps2, tiny, maxiter: int, trace):
 
     active = active_now()
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = matvec(p)
             denom = dotfn(ap, r0)
             bd1 = torch.abs(denom) < tiny
@@ -125,9 +126,10 @@ def cgs_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -> SolveResu
         r_e = b - matvec(x)
         x, rr, k, bd, trace = _inner(matvec, dotfn, x, r_e, dotfn(r_e, r_e), k, eps2, tiny,
                                      maxiter, trace)
-        r_t = b - matvec(x)
-        t_rr = dotfn(r_t, r_t)
-        rr_h, t_rr_h, k_h, bd_h = _loop.read(rr, t_rr, k, bd)
+        with span("verify"):
+            r_t = b - matvec(x)
+            t_rr = dotfn(r_t, r_t)
+            rr_h, t_rr_h, k_h, bd_h = _loop.read(rr, t_rr, k, bd)
         # a claim is verified even when its iteration tripped a breakdown
         # flag (an entry that had already converged makes the denominator 0)
         claimed = rr_h < eps2_h

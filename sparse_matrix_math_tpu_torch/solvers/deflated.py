@@ -196,7 +196,7 @@ def _deflated_cg_loop(matvec, mapply, w, b, x0, eps, maxiter: int) -> SolveResul
 
     active = active_now()
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = matvec(p)
             alpha = rz / torch.dot(p, ap)
             x_n = x + alpha * p

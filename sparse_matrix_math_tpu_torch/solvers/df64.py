@@ -159,7 +159,7 @@ def _cg_df_core(mv, b: Df, x0: Df, maxiter: int, eps2):
     status = _status0(rr[0], eps2, maxiter)
     active = status == RUNNING
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = mv(p)
             pap = df_dot(p, ap)
             alpha = df_div(rr, pap)
@@ -195,7 +195,7 @@ def _bicgstab_df_core(mv, b: Df, x0: Df, maxiter: int, eps2):
     status = _status0(rr[0], eps2, maxiter)
     active = status == RUNNING
     while _loop.running(active):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = mv(p)
             denom = df_dot(ap, r0)
             bd1 = torch.abs(denom[0]) < tiny

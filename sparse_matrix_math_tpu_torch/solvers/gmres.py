@@ -174,8 +174,7 @@ def gmres_core(matvec, precond_apply, dotfn, paneldot, b, x0, eps, m: int, maxit
         beta = torch.sqrt(dotfn(r, r))
         V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
         V[0] = r / torch.clamp(beta, min=_TINY)
-        beta = beta.cpu()
-        _loop.host_syncs["count"] += 1
+        beta = _loop.to_host(beta)
         # H, g and the rotations so far (Q) live on the host
         H = torch.zeros((m + 1, m), dtype=dtype)
         g = torch.zeros((m + 1,), dtype=dtype)
@@ -195,8 +194,7 @@ def gmres_core(matvec, precond_apply, dotfn, paneldot, b, x0, eps, m: int, maxit
             nrows = min(8 * (j // 8 + 1), m)
             w, h, hj1 = _arnoldi_step(matvec, precond_apply, dotfn, paneldot, V, j, nrows)
             V[j + 1] = w / torch.clamp(hj1, min=_TINY)
-            hv = torch.cat([h, hj1.reshape(1)]).cpu()  # one read per step
-            _loop.host_syncs["count"] += 1
+            hv = _loop.to_host(torch.cat([h, hj1.reshape(1)]))  # one read per step
             hcol = torch.zeros((m + 1,), dtype=dtype)
             hcol[:nrows] = hv[:nrows]
             hcol[j + 1] = hv[nrows]

@@ -88,7 +88,7 @@ def _inner_cg(matvec, apply_, dotfn, bu, rho2, cap: int):
     k = torch.zeros((), dtype=torch.int64, device=bu.device)
     alive = (rr > rho2) & (cap > 0)
     while _loop.running(alive):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = matvec(p)
             pap = dotfn(p, ap)
             # guard before the division: a step with pap <= 0 adds nothing
@@ -128,7 +128,7 @@ def _inner_bicgstab(matvec, apply_, dotfn, bu, rho2, cap: int):
     k = torch.zeros((), dtype=torch.int64, device=bu.device)
     alive = (rr > rho2s) & (cap > 0)
     while _loop.running(alive):
-        for _ in range(_loop.CHUNK):
+        for _ in _loop.chunk():
             ap = pre(matvec(p))
             denom = dotfn(ap, r0)
             bd1 = torch.abs(denom) < tiny

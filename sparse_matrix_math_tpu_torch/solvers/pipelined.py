@@ -94,7 +94,7 @@ def cg_pipelined_core(matvec, dot2fn, b, x0, eps, maxiter: int, record: bool,
     active = active_now()
     k_h = 0  # k at the start of each chunk: every earlier iteration ran
     while _loop.running(active):
-        for i in range(_loop.CHUNK):
+        for i in _loop.chunk():
             gamma, delta = dot2fn(r, r, w, r)  # one fused reduction
             q = matvec(w)
             first = k == 0

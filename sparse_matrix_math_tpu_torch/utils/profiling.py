@@ -11,6 +11,31 @@ top of the richer SolveResult:
   (time to solution, iterations, nnz/s, residual trace).
 * :func:`trace` — context manager around ``torch.profiler`` writing a
   Chrome trace into a directory.
+* :func:`span` — the program's own ranges, ``smm.<name>``, open only while
+  a ``torch.profiler`` records.
+
+Spans.  The solve path opens these ``record_function`` ranges, in the same
+timeline as the device operations, so :func:`trace`'s Chrome trace carries
+them and each device operation or idle gap falls under the span open at
+its launch.  They nest by time under ``smm.solve``:
+
+* ``smm.solve`` — one :func:`~..solvers.api.solve` call, whole;
+* ``smm.precond_build`` — a preconditioner built for a solve
+  (``api._build_preconditioner_for``), or a factor re-laid into the padded
+  layout (``_padded.padded_preconditioner``);
+* ``smm.iteration`` — one pass of a chunk loop (``_loop.chunk``): every
+  executed iteration, frozen ones (after convergence, to the chunk's end)
+  included;
+* ``smm.spmv`` — one operator product of the padded (DIA) or grid-stencil
+  solve path;
+* ``smm.precond_apply`` — one preconditioner apply of those paths;
+* ``smm.verify`` — one outer round's true-residual check;
+* ``smm.host_sync`` — one counted host readback (``_loop.read``,
+  ``_loop.running``, ``_loop.to_host``), the events
+  ``_loop.host_syncs`` counts.
+
+With no profiler recording, :func:`span` is one flag check and a shared
+no-op context: no environment variable or option turns spans on.
 """
 
 from __future__ import annotations
@@ -24,7 +49,36 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["benchmark_op", "spmv_throughput", "SolveStats", "solve_with_stats", "trace"]
+__all__ = ["benchmark_op", "spmv_throughput", "SolveStats", "solve_with_stats", "trace",
+           "span", "spanned", "recording", "SPAN_PREFIX"]
+
+SPAN_PREFIX = "smm."
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` is recording."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str):
+    """The range ``smm.<name>`` while a profiler records, else a shared
+    no-op context (see the module docstring for the names)."""
+    if recording():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF
+
+
+def spanned(name: str, fn: Optional[Callable]) -> Optional[Callable]:
+    """``fn`` with each call inside :func:`span` ``(name)``; None for None."""
+    if fn is None:
+        return None
+
+    def call(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def _first_tensor(out):
@@ -173,7 +227,8 @@ def trace(log_dir: str):
     ``trace.<pid>.<ns>.json``, into ``log_dir`` — view it in Perfetto or
     ``chrome://tracing``.  Replaces the JAX package's ``jax.profiler`` XPlane
     directory (``utils/profiling.py:160-167``).  Yields the profiler, whose
-    ``key_averages()`` summarises the window."""
+    ``key_averages()`` summarises the window; the trace holds the program's
+    ``smm.`` spans (module docstring)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
