@@ -53,7 +53,8 @@ fused pair                                       panel vector, or of the stacked
 ==============================================  ===============================================
 
 A solve's host reads (solvers/_loop.py) see only all-reduced values, so
-every rank takes the same branch; each group's collectives time out after
+every rank takes the same branch and sizes the same chunks; each group's
+collectives time out after
 :data:`mesh.GROUP_TIMEOUT`.  A solve's ``x`` is the rank's block; ``collect``
 gathers it.
 

@@ -63,7 +63,7 @@ def bicg_symmetric(
     return bicg_symmetric_core(matvec_fn(a), dot, b, x0, epsilon, maxiter, record_residuals)
 
 
-def _inner(matvec, dotfn, x, r, rr, k, eps, eps2, maxiter: int, trace):
+def _inner(matvec, dotfn, x, r, rr, k, eps, eps2, eps2_h, maxiter: int, trace):
     """The recurrence from iteration ``k`` until a claim, a breakdown, a
     non-finite ``rr`` or ``maxiter``; iteration 0 of the solve is forced.
     Frozen iterations leave the state as it is."""
@@ -76,26 +76,25 @@ def _inner(matvec, dotfn, x, r, rr, k, eps, eps2, maxiter: int, trace):
                 & torch.isfinite(rr))
 
     active = active_now()
-    while _loop.running(active):
-        for _ in _loop.chunk():
-            ap = matvec(p)
-            denom = dotfn(ap, p)
-            # serious breakdown (h:2056-2058): the reference exits before the
-            # step, so the step is masked out
-            s_now = (eps > torch.abs(denom)) & (rr > 1.0)
-            alpha = torch.where(s_now | ~active, 0, rr / denom)
-            x = torch.where(active, x + alpha * p, x)
-            r = torch.where(active, r - alpha * ap, r)
-            new_rr = torch.where(s_now, rr, dotfn(r, r))
-            # critical breakdown (h:2079-2081): after the step, which stands
-            c_now = (new_rr > 1.0) & (rr < eps)
-            p = torch.where(active, r + (new_rr / rr) * p, p)
-            _loop.record_step(trace, k, active, torch.sqrt(new_rr), maxiter)
-            serious = torch.where(active, s_now, serious)
-            critical = torch.where(active, c_now, critical)
-            rr = torch.where(active, new_rr, rr)
-            k = k + active
-            active = active_now()
+    for _ in _loop.passes(lambda: (active, rr), eps2_h):
+        ap = matvec(p)
+        denom = dotfn(ap, p)
+        # serious breakdown (h:2056-2058): the reference exits before the
+        # step, so the step is masked out
+        s_now = (eps > torch.abs(denom)) & (rr > 1.0)
+        alpha = torch.where(s_now | ~active, 0, rr / denom)
+        x = torch.where(active, x + alpha * p, x)
+        r = torch.where(active, r - alpha * ap, r)
+        new_rr = torch.where(s_now, rr, dotfn(r, r))
+        # critical breakdown (h:2079-2081): after the step, which stands
+        c_now = (new_rr > 1.0) & (rr < eps)
+        p = torch.where(active, r + (new_rr / rr) * p, p)
+        _loop.record_step(trace, k, active, torch.sqrt(new_rr), maxiter)
+        serious = torch.where(active, s_now, serious)
+        critical = torch.where(active, c_now, critical)
+        rr = torch.where(active, new_rr, rr)
+        k = k + active
+        active = active_now()
     return x, rr, k, serious | critical, trace
 
 
@@ -114,7 +113,7 @@ def bicg_symmetric_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -
         # (re)start from the true residual
         r_e = b - matvec(x)
         x, rr, k, broke, trace = _inner(matvec, dotfn, x, r_e, dotfn(r_e, r_e), k, eps, eps2,
-                                        maxiter, trace)
+                                        eps2_h, maxiter, trace)
         with span("verify"):
             r_t = b - matvec(x)
             t_rr = dotfn(r_t, r_t)

@@ -72,10 +72,10 @@ def bicgstab(
                          record_residuals)
 
 
-def _inner(matvec, precond, dotfn, x, r, r0, p, rr0, k, chunk_end: int, eps,
+def _inner(matvec, precond, dotfn, x, r, r0, p, rr0, k, k_h: int, chunk_end: int, eps, eps_h,
            explode_at, tiny, trace, maxiter: int):
-    """The BiCGStab recurrence until a claimed convergence, a breakdown, an
-    explosion or ``chunk_end``."""
+    """The BiCGStab recurrence from iteration ``k`` (``k_h`` on the host)
+    until a claimed convergence, a breakdown, an explosion or ``chunk_end``."""
     res_norm = torch.sqrt(dotfn(r, r))
     bd = torch.zeros((), dtype=torch.bool, device=r.device)
 
@@ -83,30 +83,29 @@ def _inner(matvec, precond, dotfn, x, r, r0, p, rr0, k, chunk_end: int, eps,
         return (res_norm > eps) & (k < chunk_end) & ~bd & (res_norm < explode_at)
 
     active = active_now()
-    while _loop.running(active):
-        for _ in _loop.chunk():
-            ap = precond(matvec(p))
-            denom = dotfn(ap, r0)
-            bd1 = torch.abs(denom) < tiny
-            alpha = torch.where(bd1 | ~active, 0, rr0 / denom)
-            s = r - alpha * ap
-            as_ = precond(matvec(s))
-            asas = dotfn(as_, as_)
-            bd2 = torch.abs(asas) < tiny
-            omega = torch.where(bd2 | ~active, 0, dotfn(as_, s) / asas)
-            x = torch.where(active, x + alpha * p + omega * s, x)
-            r = torch.where(active, s - omega * as_, r)
-            new_res_norm = torch.sqrt(dotfn(r, r))
-            new_rr0 = dotfn(r, r0)
-            bd3 = (torch.abs(rr0) < tiny) | (torch.abs(omega) < tiny)
-            beta = torch.where(bd3, 0, (new_rr0 * alpha) / (rr0 * omega))
-            p = torch.where(active, r + beta * (p - omega * ap), p)
-            bd = torch.where(active, bd1 | bd2 | bd3 | ~torch.isfinite(new_res_norm), bd)
-            _loop.record_step(trace, k, active, new_res_norm, maxiter)
-            rr0 = torch.where(active, new_rr0, rr0)
-            res_norm = torch.where(active, new_res_norm, res_norm)
-            k = k + active
-            active = active_now()
+    for _ in _loop.passes(lambda: (active, res_norm), eps_h, chunk_end - k_h):
+        ap = precond(matvec(p))
+        denom = dotfn(ap, r0)
+        bd1 = torch.abs(denom) < tiny
+        alpha = torch.where(bd1 | ~active, 0, rr0 / denom)
+        s = r - alpha * ap
+        as_ = precond(matvec(s))
+        asas = dotfn(as_, as_)
+        bd2 = torch.abs(asas) < tiny
+        omega = torch.where(bd2 | ~active, 0, dotfn(as_, s) / asas)
+        x = torch.where(active, x + alpha * p + omega * s, x)
+        r = torch.where(active, s - omega * as_, r)
+        new_res_norm = torch.sqrt(dotfn(r, r))
+        new_rr0 = dotfn(r, r0)
+        bd3 = (torch.abs(rr0) < tiny) | (torch.abs(omega) < tiny)
+        beta = torch.where(bd3, 0, (new_rr0 * alpha) / (rr0 * omega))
+        p = torch.where(active, r + beta * (p - omega * ap), p)
+        bd = torch.where(active, bd1 | bd2 | bd3 | ~torch.isfinite(new_res_norm), bd)
+        _loop.record_step(trace, k, active, new_res_norm, maxiter)
+        rr0 = torch.where(active, new_rr0, rr0)
+        res_norm = torch.where(active, new_res_norm, res_norm)
+        k = k + active
+        active = active_now()
     return x, r, p, rr0, res_norm, k, bd, trace
 
 
@@ -131,8 +130,8 @@ def bicgstab_core(matvec, precond, dotfn, b, x0, eps, maxiter: int,
     while status is None:
         explode_at = best_norm * factor
         x, r, p, rr0, res_norm, k, bd, trace = _inner(
-            matvec, precond, dotfn, x, r, r0, p, rr0, k, min(k_h + _ROUND, maxiter),
-            eps, explode_at, tiny, trace, maxiter,
+            matvec, precond, dotfn, x, r, r0, p, rr0, k, k_h, min(k_h + _ROUND, maxiter),
+            eps, eps_h, explode_at, tiny, trace, maxiter,
         )
         with span("verify"):
             r_t = precond(b - matvec(x))

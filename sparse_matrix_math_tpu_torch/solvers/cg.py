@@ -15,7 +15,8 @@ preconditioned overload h:2414-2505).  Same contract as the JAX cores:
   MAX_ITERATIONS_REACHED.
 
 The loop is host-driven (solvers/_loop.py): one host read per chunk of
-iterations and one per outer round.
+iterations, each chunk sized from ``rr``'s observed rate against ``eps^2``,
+and one per outer round.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def conjugate_gradient(
 cg = conjugate_gradient
 
 
-def _cg_inner(matvec, dotfn, precond, x, r, rr, k, eps2, maxiter, trace):
+def _cg_inner(matvec, dotfn, precond, x, r, rr, k, eps2, eps2_h, maxiter, trace):
     """The (P)CG recurrence from iteration ``k`` until ``rr < eps2``,
     divergence or ``maxiter``; frozen iterations leave the state as is."""
     z = r if precond is None else precond(r)
@@ -92,24 +93,23 @@ def _cg_inner(matvec, dotfn, precond, x, r, rr, k, eps2, maxiter, trace):
         return (rr >= eps2) & (k < maxiter) & torch.isfinite(rr)
 
     active = active_now()
-    while _loop.running(active):
-        for _ in _loop.chunk():
-            ap = matvec(p)
-            alpha = torch.where(active, rz / dotfn(ap, p), 0)
-            x = torch.where(active, x + alpha * p, x)
-            r = torch.where(active, r - alpha * ap, r)
-            new_rr = dotfn(r, r)
-            if precond is None:
-                z, new_rz = r, new_rr
-            else:
-                z = precond(r)
-                new_rz = dotfn(r, z)
-            p = torch.where(active, z + (new_rz / rz) * p, p)
-            _loop.record_step(trace, k, active, torch.sqrt(new_rr), maxiter)
-            rr = torch.where(active, new_rr, rr)
-            rz = torch.where(active, new_rz, rz)
-            k = k + active
-            active = active_now()
+    for _ in _loop.passes(lambda: (active, rr), eps2_h):
+        ap = matvec(p)
+        alpha = torch.where(active, rz / dotfn(ap, p), 0)
+        x = torch.where(active, x + alpha * p, x)
+        r = torch.where(active, r - alpha * ap, r)
+        new_rr = dotfn(r, r)
+        if precond is None:
+            z, new_rz = r, new_rr
+        else:
+            z = precond(r)
+            new_rz = dotfn(r, z)
+        p = torch.where(active, z + (new_rz / rz) * p, p)
+        _loop.record_step(trace, k, active, torch.sqrt(new_rr), maxiter)
+        rr = torch.where(active, new_rr, rr)
+        rz = torch.where(active, new_rz, rz)
+        k = k + active
+        active = active_now()
     return x, rr, k, trace
 
 
@@ -132,7 +132,7 @@ def _cg_outer(matvec, dotfn, precond, b, x0, eps, maxiter: int, record: bool) ->
         # (re)start from the true residual
         r_e = b - matvec(x)
         x, rr, k, trace = _cg_inner(matvec, dotfn, precond, x, r_e, dotfn(r_e, r_e),
-                                    k, eps2, maxiter, trace)
+                                    k, eps2, eps2_h, maxiter, trace)
         with span("verify"):
             r_t = b - matvec(x)
             t_rr = dotfn(r_t, r_t)

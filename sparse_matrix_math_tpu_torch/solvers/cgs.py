@@ -69,7 +69,7 @@ def conjugate_gradient_squared(
 cgs = conjugate_gradient_squared
 
 
-def _inner(matvec, dotfn, x, r, rr0, k, eps2, tiny, maxiter: int, trace):
+def _inner(matvec, dotfn, x, r, rr0, k, eps2, eps2_h, tiny, maxiter: int, trace):
     """The CGS recursion from iteration ``k`` (always run) until a claim, a
     breakdown, a non-finite ``rr`` or ``maxiter``.  Frozen iterations leave
     the state as it is."""
@@ -83,30 +83,29 @@ def _inner(matvec, dotfn, x, r, rr0, k, eps2, tiny, maxiter: int, trace):
         return (((rr >= eps2) | (k == k_start)) & (k < maxiter) & ~bd & torch.isfinite(rr))
 
     active = active_now()
-    while _loop.running(active):
-        for _ in _loop.chunk():
-            ap = matvec(p)
-            denom = dotfn(ap, r0)
-            bd1 = torch.abs(denom) < tiny
-            alpha = torch.where(bd1 | ~active, 0, rr0 / denom)
-            q_n = u - alpha * ap
-            uq = u + q_n
-            x = torch.where(active, x + alpha * uq, x)
-            r = torch.where(active, r - alpha * matvec(uq), r)
-            new_rr0 = dotfn(r, r0)
-            new_rr = dotfn(r, r)
-            bd2 = torch.abs(rr0) < tiny
-            beta = torch.where(bd2, 0, new_rr0 / rr0)
-            u_n = r + beta * q_n
-            p = torch.where(active, u_n + beta * (q_n + beta * p), p)
-            u = torch.where(active, u_n, u)
-            q = torch.where(active, q_n, q)
-            _loop.record_step(trace, k, active, torch.sqrt(new_rr), maxiter)
-            bd = torch.where(active, bd1 | bd2, bd)
-            rr0 = torch.where(active, new_rr0, rr0)
-            rr = torch.where(active, new_rr, rr)
-            k = k + active
-            active = active_now()
+    for _ in _loop.passes(lambda: (active, rr), eps2_h):
+        ap = matvec(p)
+        denom = dotfn(ap, r0)
+        bd1 = torch.abs(denom) < tiny
+        alpha = torch.where(bd1 | ~active, 0, rr0 / denom)
+        q_n = u - alpha * ap
+        uq = u + q_n
+        x = torch.where(active, x + alpha * uq, x)
+        r = torch.where(active, r - alpha * matvec(uq), r)
+        new_rr0 = dotfn(r, r0)
+        new_rr = dotfn(r, r)
+        bd2 = torch.abs(rr0) < tiny
+        beta = torch.where(bd2, 0, new_rr0 / rr0)
+        u_n = r + beta * q_n
+        p = torch.where(active, u_n + beta * (q_n + beta * p), p)
+        u = torch.where(active, u_n, u)
+        q = torch.where(active, q_n, q)
+        _loop.record_step(trace, k, active, torch.sqrt(new_rr), maxiter)
+        bd = torch.where(active, bd1 | bd2, bd)
+        rr0 = torch.where(active, new_rr0, rr0)
+        rr = torch.where(active, new_rr, rr)
+        k = k + active
+        active = active_now()
     return x, rr, k, bd, trace
 
 
@@ -124,8 +123,8 @@ def cgs_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -> SolveResu
     while True:
         # every round (re)starts the recursion from the true residual
         r_e = b - matvec(x)
-        x, rr, k, bd, trace = _inner(matvec, dotfn, x, r_e, dotfn(r_e, r_e), k, eps2, tiny,
-                                     maxiter, trace)
+        x, rr, k, bd, trace = _inner(matvec, dotfn, x, r_e, dotfn(r_e, r_e), k, eps2, eps2_h,
+                                     tiny, maxiter, trace)
         with span("verify"):
             r_t = b - matvec(x)
             t_rr = dotfn(r_t, r_t)

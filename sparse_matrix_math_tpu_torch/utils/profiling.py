@@ -23,9 +23,9 @@ its launch.  They nest by time under ``smm.solve``:
 * ``smm.precond_build`` — a preconditioner built for a solve
   (``api._build_preconditioner_for``), or a factor re-laid into the padded
   layout (``_padded.padded_preconditioner``);
-* ``smm.iteration`` — one pass of a chunk loop (``_loop.chunk``): every
-  executed iteration, frozen ones (after convergence, to the chunk's end)
-  included;
+* ``smm.iteration`` — one pass of a chunk loop (``_loop.passes``,
+  ``_loop.chunk``): every executed iteration, frozen ones (after
+  convergence, to the chunk's end) included;
 * ``smm.spmv`` — one operator product of the padded (DIA) or grid-stencil
   solve path;
 * ``smm.precond_apply`` — one preconditioner apply of those paths;

@@ -2,9 +2,9 @@
 ``torch.profiler``, and that nothing is opened, or changed, without one.
 
 * ``smm.solve`` opens once per ``solve()`` call and holds every other span.
-* ``smm.iteration`` opens once per executed iteration: whole chunks of
-  ``_loop.CHUNK``, frozen iterations included, so at least the solve's
-  ``iterations`` and fewer than one chunk more per round.
+* ``smm.iteration`` opens once per executed iteration, frozen iterations
+  included, as often as ``_loop.chunk_counts`` counts passes: at least the
+  solve's ``iterations`` and at most one chunk more per round.
 * ``smm.spmv`` on the padded and grid paths opens once per executed
   iteration, once for ``r0`` and twice per round (the restart residual and
   the verify); ``smm.verify`` once per round.
@@ -88,11 +88,23 @@ def test_one_solve_span_holds_every_other(case):
 
 @pytest.mark.parametrize("case", [c for c in CASES if c != "csr_gmres"])
 def test_iteration_spans_are_whole_chunks(case):
-    res, spans, _ = _traced(case)
+    """Each executed pass opens one ``smm.iteration`` and counts one pass in
+    ``_loop.chunk_counts``; the chunks are sized from the residual's rate,
+    so a round runs at most one chunk's frozen tail, and the reads are the
+    whole-chunk loop's chunks plus at most ``SHORT_CHUNKS`` a round, and the
+    fixed ones (the first residual, each round's first read and verify)."""
+    counts0 = dict(_loop.chunk_counts)
+    res, spans, syncs = _traced(case)
+    counts = {key: _loop.chunk_counts[key] - counts0[key] for key in counts0}
     executed, rounds = len(spans["iteration"]), len(spans["verify"])
+    assert int(res.status) == int(smm.SolverStatus.SUCCESS)
     assert rounds >= 1
-    assert executed % _loop.CHUNK == 0
-    assert res.iterations <= executed < res.iterations + _loop.CHUNK * rounds
+    assert executed == counts["passes"]
+    assert res.iterations <= executed <= res.iterations + _loop.CHUNK * rounds
+    whole = -(-res.iterations // _loop.CHUNK) + rounds - 1
+    fixed = 1 + 2 * rounds
+    assert syncs == counts["chunks"] + fixed
+    assert counts["chunks"] <= whole + _loop.SHORT_CHUNKS * rounds
 
 
 @pytest.mark.parametrize("case", ["padded_pcg_sgs", "grid_cg"])
