@@ -1,7 +1,7 @@
 """The preconditioner apply's share of its roofline: the least time of a
-truncated SGS apply of the cell's sweeps (roofline.py) over the device time
-per apply.  Nothing where the ``precond_apply`` spans opened fewer times
-than the solves iterated."""
+truncated SGS apply of the cell's sweeps (roofline.py), over the rank's
+share of the rows, against the device time per apply.  Nothing where the
+``precond_apply`` spans opened fewer times than the solves iterated."""
 
 from solvebench import roofline
 
@@ -11,5 +11,6 @@ def read(run):
     sweeps = run.traffic["solve"].get("preconditioner_options", {}).get("sweeps")
     if not us or not calls or calls < run.iterations() or not sweeps:
         return None
-    least = roofline.least_seconds(run.cfg, roofline.sgs_flops(run.cfg, sweeps))
+    least = roofline.least_seconds(run.cfg, roofline.sgs_flops(run.cfg, sweeps),
+                                    run.share)
     return 100.0 * least / (1e-6 * us / calls)

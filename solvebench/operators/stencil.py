@@ -8,8 +8,9 @@ face neighbours) or ``3 ** d`` (every neighbour) on a grid of ``d`` axes, the
 builds is, entry for entry, what the port's ``utils/generate.py``
 ``poisson_2d`` / ``poisson_3d`` / ``poisson_3d_27pt`` build on the host (the
 tests hold it to them), without their host sort: each row's points are laid
-out in ascending column order to begin with.  :func:`apply` is the plain
-product: one shifted slice of the zero-padded grid per point.
+out in ascending column order to begin with.  :func:`csr_rows` builds a
+block of those rows alone.  :func:`apply` is the plain product: one shifted
+slice of the zero-padded grid per point.
 """
 
 from __future__ import annotations
@@ -67,14 +68,25 @@ def _shape(cfg: dict):
 def csr(cfg: dict, device, dtype, csr_type):
     """The operator as a ``csr_type`` (the port's CSRMatrix) built on
     ``device`` in ``dtype``: rows ascending, columns ascending within a row."""
+    return csr_rows(cfg, 0, rows(cfg), device, dtype, csr_type)
+
+
+def csr_rows(cfg: dict, lo: int, hi: int, device, dtype, csr_type):
+    """Rows ``[lo, hi)`` of :func:`csr`, with their global columns, as a
+    ``csr_type`` of shape ``(hi - lo, n)``: for a grid, the slab of the
+    slowest axis's planes those rows span.  Nothing outside the rows is
+    built."""
     shape = _shape(cfg)
     pts = offsets(cfg)
     n = math.prod(shape)
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"rows [{lo}, {hi}) of an operator of {n}")
+    m = hi - lo
     strides = [math.prod(shape[a + 1:]) for a in range(len(shape))]
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
     coord = [(idx // s) % size for s, size in zip(strides, shape)]
-    cols = torch.empty((n, len(pts)), dtype=torch.int64, device=device)
-    valid = torch.ones((n, len(pts)), dtype=torch.bool, device=device)
+    cols = torch.empty((m, len(pts)), dtype=torch.int64, device=device)
+    valid = torch.ones((m, len(pts)), dtype=torch.bool, device=device)
     for p, (off, _) in enumerate(pts):
         for c, o, size in zip(coord, off, shape):
             if o:
@@ -83,15 +95,16 @@ def csr(cfg: dict, device, dtype, csr_type):
     del coord
     coeffs = torch.tensor([c for _, c in pts], dtype=dtype, device=device)
     counts = valid.sum(dim=1)
-    indptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    indptr = torch.zeros(m + 1, dtype=torch.int64, device=device)
     torch.cumsum(counts, 0, out=indptr[1:])
     flat = valid.reshape(-1)
     indices = cols.reshape(-1)[flat]
     del cols
-    data = coeffs.expand(n, len(pts)).reshape(-1)[flat]
-    row_ids = torch.repeat_interleave(idx, counts, output_size=indices.shape[0])
+    data = coeffs.expand(m, len(pts)).reshape(-1)[flat]
+    local = idx - lo if lo else idx
+    row_ids = torch.repeat_interleave(local, counts, output_size=indices.shape[0])
     return csr_type(data=data, indices=indices, indptr=indptr, row_ids=row_ids,
-                    shape=(n, n))
+                    shape=(m, n))
 
 
 def apply(cfg: dict, x: torch.Tensor) -> torch.Tensor:

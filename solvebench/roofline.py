@@ -9,7 +9,8 @@ matrix-free or diagonal-resident kernel cannot read over 100%.  The flops
 are those of the operation's definition.  The least time is the larger of
 bytes over the memory bandwidth and flops over the dtype's peak.  Vectors
 that fit in the card's 50 MB L2 could beat the bandwidth of HBM; the cells'
-vectors do not (PERF.md).
+vectors do not (PERF.md).  Where a cell's rows are split over ranks, each
+rank's least work is its share of the rows times the whole's.
 """
 
 from __future__ import annotations
@@ -42,9 +43,11 @@ def sgs_flops(cfg: dict, sweeps: int) -> int:
     return (2 * sweeps * (2 * strict + 1) + 1) * rows(cfg)
 
 
-def least_seconds(cfg: dict, flops: int) -> float:
+def least_seconds(cfg: dict, flops: int, share=1) -> float:
     """The least time of an operation that reads one vector of the
-    configuration's dtype and writes one."""
+    configuration's dtype and writes one, over ``share`` of the rows: a
+    rank's share of them, its block over the whole, when the rows are split
+    over ranks (1 on one card)."""
     itemsize = ITEMSIZE[cfg["dtype"]]
     nbytes = 2 * rows(cfg) * itemsize + reference.operator(cfg).value_bytes(cfg, itemsize)
-    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[cfg["dtype"]])
+    return max(share * nbytes / HBM_BYTES_PER_S, share * flops / PEAK_FLOPS[cfg["dtype"]])

@@ -197,14 +197,27 @@ def test_no_card_means_no_result(monkeypatch, capsys):
 
 
 def test_a_cell_of_more_than_one_card_is_refused(monkeypatch, capsys):
-    """One process runs a cell on one card: a cell that asks for more is
-    refused before any work, with no result line."""
+    """A cell of 4 cards on a machine with fewer is refused before any
+    work, with no result line; so is one whose rows do not split into 4
+    blocks of multiples of 8, by name, before any rank starts."""
     wl, cfg = run.load_cell(CELLS[0])
     monkeypatch.setattr(run, "load_cell", lambda name: (dict(wl, chips=4), cfg))
-    rc = run.main(["--workload", CELLS[0], "--seed", "1", "--seconds", "1", "--trace", "0"])
+    monkeypatch.setattr(run, "pin_caches", lambda: None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = ["--workload", CELLS[0], "--seed", "1", "--seconds", "1", "--trace", "0"]
+    rc = run.main(argv)
     captured = capsys.readouterr()
     assert rc != 0 and captured.out == ""
-    assert "4 cards" in captured.err
+    assert "needs 4 CUDA card(s); found 1" in captured.err
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(run, "load_cell", lambda name: (dict(wl, chips=4),
+                                                        dict(cfg, grid=[6, 5, 4])))
+    monkeypatch.setattr(run, "launch", lambda *a, **k: pytest.fail("a rank was started"))
+    rc = run.main(argv)
+    captured = capsys.readouterr()
+    assert rc != 0 and captured.out == ""
+    assert "has 120 rows, not a multiple of 8 x 4 ranks" in captured.err
 
 
 def test_the_benchmark_alone_measures_nothing(tmp_path):

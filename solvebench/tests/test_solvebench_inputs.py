@@ -99,20 +99,34 @@ def test_operators_are_found_by_name_and_refuse_what_they_do_not_define():
 
 def test_rhs_pool_is_a_x_of_the_perturbed_ones():
     cfg = _cfg(27, (4, 4, 5))
-    pool, norms = generate.rhs_pool(cfg, 2**31 + 7, 3, 0.05, torch.device("cpu"),
-                                    torch.float64)
-    again, _ = generate.rhs_pool(cfg, 2**31 + 7, 3, 0.05, torch.device("cpu"), torch.float64)
-    other, _ = generate.rhs_pool(cfg, 2**31 + 8, 3, 0.05, torch.device("cpu"), torch.float64)
+    cpu = torch.device("cpu")
+    pool, norms = generate.rhs_pool(cfg, 2**31 + 7, 8, 0.05, cpu, torch.float64)
+    again, _ = generate.rhs_pool(cfg, 2**31 + 7, 8, 0.05, cpu, torch.float64)
+    order = generate.rhs_order(2**31 + 7, 8)
     a = _dense(cfg)
     for k, b in enumerate(pool):
-        gen = torch.Generator().manual_seed(generate.rhs_seed(2**31 + 7, k))
+        gen = torch.Generator().manual_seed(generate.rhs_seed(order[k]))
         x = 1.0 + 0.05 * (2.0 * torch.rand(a.shape[0], generator=gen, dtype=torch.float64) - 1)
         assert float((x - 1).abs().max()) <= 0.05
         np.testing.assert_allclose(b.numpy(), a @ x.numpy(), rtol=0, atol=1e-12)
         assert torch.equal(b, again[k])
-        assert not torch.equal(b, other[k])
         assert norms[k] == pytest.approx(float(torch.linalg.vector_norm(b)))
     assert not torch.equal(pool[0], pool[1])
+
+
+def test_every_seed_takes_the_same_set_in_its_own_order():
+    cfg = _cfg(27, (4, 4, 5))
+    cpu = torch.device("cpu")
+    seeds = (2**31 + 7, 2**31 + 8, 5 * 2**40 + 3)
+    orders = [generate.rhs_order(seed, 8) for seed in seeds]
+    assert all(sorted(order) == list(range(8)) for order in orders)
+    assert len({tuple(order) for order in orders}) == len(seeds)
+    base, _ = generate.rhs_pool(cfg, seeds[0], 8, 0.05, cpu, torch.float64)
+    by_member = {m: base[i] for i, m in enumerate(orders[0])}
+    for seed, order in zip(seeds[1:], orders[1:]):
+        pool, _ = generate.rhs_pool(cfg, seed, 8, 0.05, cpu, torch.float64)
+        for i, m in enumerate(order):
+            assert torch.equal(pool[i], by_member[m])
 
 
 def test_roofline_models_by_hand():
