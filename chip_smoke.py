@@ -99,7 +99,13 @@ bit for bit its plain version), each held to the single-device solve of the
 same system (status, iterations, the host's float64 residual) with wall and
 device microseconds per iteration and collectives per iteration beside it;
 then ``examples/torch_distributed_solve.py`` under ``torch.distributed.run``
-and, as a CPU run, at ``--cpu 2``.
+and, as a CPU run, at ``--cpu 2``; then the 4-card HPCG cell's path in one
+process per card, on every card up to 4: each rank's own rows of a 27-point
+f64 stencil at 256^3 a rank laid out by ``distribute_dia_rows``, the
+shard's K3 over its halo and K4 over its SGS(4) window each bit for bit its
+plain version on the same padded operands, and ``dist_padded_solve`` PCG +
+SGS(4) to 1e-8, every product and apply one kernel launch, its solution's
+true residual from the rank's CSR rows.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
@@ -3107,9 +3113,11 @@ def phase_x(smm, W, torch, dev, dia_solves, routed=None, nx: int = 1414, m: int 
     :func:`phase_x_modules` (``dist_routed_solve``, ``dist_cg_ir_df64``,
     ``dist_mg_solve``; ``routed`` is phase R's chain), each against the
     single-device solve of the same system; then the distributed example
-    under ``torch.distributed.run`` and at ``--cpu 2``.  Returns the
-    readings and the launches of K7 (the W-SELL solve), the folded routed
-    product (the routed solve) and K11 (the routed shard's fold)."""
+    under ``torch.distributed.run`` and at ``--cpu 2``; then
+    :func:`phase_x_shards` (``dist_padded_solve`` over every card, up to
+    4).  Returns the readings and the launches of K7 (the W-SELL solve), the
+    folded routed product (the routed solve), K11 (the routed shard's
+    fold), and K3 and K4 (the padded shard's solve, rank 0)."""
     import shutil
     import tempfile
 
@@ -3275,7 +3283,191 @@ def phase_x(smm, W, torch, dev, dia_solves, routed=None, nx: int = 1414, m: int 
                 and "SolveResult(status=SUCCESS" in run.stdout,
                 f"torch_distributed_solve {tag}: SUCCESS in {time.perf_counter() - t8:.1f} s"
                 + ("" if run.returncode == 0 else f"\n{run.stderr[-3000:]}"))
+    # the 4-card HPCG cell's path, one process per card
+    label, out[label], shard_launches = phase_x_shards(torch)
+    launches.update(shard_launches)
     return out, launches
+
+
+# the shard case's local grid: one HPCG rank of the 4-card cell, 256^3 a card
+_SHARD_SIDE = 256
+
+
+def shard_case(torch, mesh, side: int = _SHARD_SIDE) -> dict:
+    """One rank of the distributed padded DIA path at HPCG's local grid:
+    this rank's own rows (``side``^3 of a 27-point f64 stencil, z-slabs of
+    a ``side`` x ``side`` x ``side * ranks`` grid, built by the benchmark's
+    ``csr_rows``) laid out by ``parallel.distribute_dia_rows``; the shard's
+    K3 over its ``reach``-deep halo against ``dia_spmv_padded_plain``, and
+    K4 over its SGS(4) window against ``sgs_apply_plain``, on the same padded
+    operands, bit for bit; then ``dist_padded_solve`` PCG + SGS(4) to
+    1e-8 ||b||, its launches counted from zero, and its solution's true
+    residual ||b - A x|| from this rank's CSR rows times the gathered x."""
+    from solvebench.operators import stencil
+    from sparse_matrix_math_tpu_torch import CSRMatrix
+    from sparse_matrix_math_tpu_torch import parallel as par
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
+    from sparse_matrix_math_tpu_torch.ops import trisweep as T
+    from sparse_matrix_math_tpu_torch.parallel import dist_padded as DP
+    from sparse_matrix_math_tpu_torch.parallel import mesh as M
+
+    dev, f64 = mesh.device, torch.float64
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    cfg = {"grid": [side, side, side * mesh.size],
+           "stencil": {"points": 27, "diagonal": 26.0, "neighbour": -1.0}}
+    n = stencil.rows(cfg)
+    m = n // mesh.size
+    lo = mesh.rank * m
+    sync()
+    t0 = time.perf_counter()
+    local = stencil.csr_rows(cfg, lo, lo + m, dev, f64, CSRMatrix)
+    op = par.distribute_dia_rows(local, mesh)
+    lay = DP._layout(op, 4)
+    sync()
+    layout_s = time.perf_counter() - t0
+
+    def rows_times(x):
+        """This rank's rows of A times the whole ``x``, plain torch."""
+        return torch.zeros(m, dtype=f64, device=dev).index_add_(
+            0, local.row_ids, local.data * x[local.indices])
+
+    def norm(v):
+        return float(M.all_reduce(torch.dot(v, v), mesh)) ** 0.5
+
+    gen = torch.Generator(device=dev).manual_seed(1000 + mesh.rank)
+    xp = lay.pdia.to_padded(torch.rand(m, dtype=f64, device=dev, generator=gen))
+    DP._fill_halo(xp, lay, mesh, op.reach)
+    y = K.dia_spmv_padded(lay.pdia, xp)
+    k3_equal = torch.equal(y, K.dia_spmv_padded_plain(lay.pdia.diags_p, lay.pdia.offsets,
+                                                      lay.lead, m, xp))
+    rp = lay.pdia.to_padded(torch.rand(m, dtype=f64, device=dev, generator=gen))
+    DP._fill_halo(rp, lay, mesh, lay.depth)
+    z = T.sgs_apply_fused(lay.psgs, rp)
+    k4_equal = torch.equal(z, T.sgs_apply_plain(lay.psgs, rp))
+    del xp, y, rp, z
+
+    # b = A x_true, x_true = 1 + 0.05 U(-1, 1): the same whole vector on every rank
+    gen.manual_seed(5)
+    b = rows_times(1.0 + 0.05 * (2.0 * torch.rand(n, dtype=f64, device=dev, generator=gen)
+                                 - 1.0))
+    bn = norm(b)
+    K.reset_launch_counts()
+    T.reset_launch_counts()
+    halos, reduces = M.collectives["halo"], M.collectives["all_reduce"]
+    sync()
+    t1 = time.perf_counter()
+    res = par.dist_padded_solve(op, b, epsilon=1e-8 * bn, method="cg", preconditioner="sgs",
+                                preconditioner_options={"sweeps": 4})
+    sync()
+    wall = time.perf_counter() - t1
+    k3, k4 = K.launches["dia_spmv_padded"], T.launches["sgs_apply"]
+    halos, reduces = M.collectives["halo"] - halos, M.collectives["all_reduce"] - reduces
+    rel = norm(b - rows_times(M.all_gather(res.x, mesh))) / bn
+    return {"rows": m, "reach": op.reach, "depth": lay.depth, "layout_s": layout_s,
+            "k3_equal": k3_equal, "k4_equal": k4_equal, "status": res.status_enum().name,
+            "iterations": res.iterations, "wall_s": wall, "k3": k3, "k4": k4, "halos": halos,
+            "all_reduces": reduces, "x_rows": int(res.x.shape[0]), "rel_residual": rel,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
+
+
+def _shard_rank(rank, k, store, results, side):
+    """Rank ``rank`` of ``k``, on ``cuda:<rank>`` over NCCL: its
+    :func:`shard_case`, or its traceback, onto ``results``."""
+    import traceback
+
+    import torch
+
+    from sparse_matrix_math_tpu_torch import parallel as par
+
+    try:
+        torch.cuda.set_device(rank)
+        mesh = par.init_distributed(f"file://{store}", k, rank, device=f"cuda:{rank}")
+        results.put((rank, True, shard_case(torch, mesh, side)))
+    except Exception:  # reported to the phase, which fails on it
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_x_shards(torch, side: int = _SHARD_SIDE):
+    """The distributed padded DIA path (``parallel/dist_padded.py``), the
+    4-card HPCG cell's: :func:`shard_case` in one process per card, on
+    every card of the machine up to 4 (a machine of one card runs one rank,
+    whose shard has no halo).  Holds on every rank K3 and K4 to their plain
+    versions, the solve's status, its iterations alike on every rank, one
+    K3 or K4 launch for each exchange (every product and apply a kernel),
+    the rank's rows as x, and the true residual at most 1.01e-8 ||b||.
+    Returns the reading and rank 0's launches."""
+    import multiprocessing
+    import queue
+    import shutil
+    import tempfile
+
+    from sparse_matrix_math_tpu_torch.parallel import mesh as M
+
+    k = min(torch.cuda.device_count(), 4)
+    label = f"dist_padded_solve pcg+sgs(4) 27-point f64 {side}^3 a rank, {k} card(s)"
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results, outs = ctx.Queue(), {}
+    tmp = tempfile.mkdtemp(prefix="smm_shards_")
+    procs = [ctx.Process(target=_shard_rank, args=(r, k, os.path.join(tmp, "store"), results,
+                                                   side)) for r in range(k)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + M.JOIN_TIMEOUT
+    try:
+        while len(outs) < k:
+            try:
+                rank, ok, value = results.get(timeout=max(deadline - time.monotonic(), 1.0))
+            except queue.Empty:
+                raise CheckFailed(f"{label}: {k} ranks did not finish in {M.JOIN_TIMEOUT} s")
+            require(ok, f"{label}: rank {rank} failed:\n{value}", quiet=True)
+            outs[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.perf_counter() - t0
+    r0 = outs[0]
+    print(f"{label}: {r0['status']} iterations={r0['iterations']} rel. residual "
+          f"{max(r['rel_residual'] for r in outs.values()):.6e}; solve "
+          f"{max(r['wall_s'] for r in outs.values()):.3f} s; layout "
+          f"{max(r['layout_s'] for r in outs.values()):.2f} s; reach {r0['reach']}, SGS "
+          f"window halo {r0['depth']} rows; rank 0: K3 {r0['k3']}, K4 {r0['k4']} launches, "
+          f"{r0['halos']} exchanges, {r0['all_reduces']} all-reduces; peak "
+          f"{max(r['peak_bytes'] for r in outs.values()):,} B a card; {took:.1f} s in all")
+    for rank, r in sorted(outs.items()):
+        require(r["k3_equal"] and r["k4_equal"],
+                f"{label}, rank {rank}: K3 over the halo and K4 over the window bit for bit "
+                "dia_spmv_padded_plain and sgs_apply_plain on the same padded operands",
+                quiet=rank > 0)
+        require(r["status"] == "SUCCESS" and r["iterations"] == r0["iterations"]
+                and r["x_rows"] == r["rows"],
+                f"{label}, rank {rank}: SUCCESS in {r['iterations']} iterations as rank 0, "
+                f"x of its {r['rows']:,} rows", quiet=rank > 0)
+        require(r["k3"] + r["k4"] == r["halos"] and r["k4"] >= r["iterations"]
+                and r["k3"] >= r["iterations"],
+                f"{label}, rank {rank}: one K3 or K4 launch per exchange ({r['k3']} + "
+                f"{r['k4']} launches, {r['halos']} exchanges)", quiet=rank > 0)
+        require(r["rel_residual"] <= 1.01e-8,
+                f"{label}, rank {rank}: true residual {r['rel_residual']:.4e} <= 1e-8 ||b|| "
+                "(+1%)", quiet=rank > 0)
+    reading = {key: r0[key] for key in ("status", "iterations", "reach", "depth", "k3", "k4",
+                                        "halos", "all_reduces")}
+    reading.update(ranks=k, wall_s=max(r["wall_s"] for r in outs.values()),
+                   layout_s=max(r["layout_s"] for r in outs.values()),
+                   rel_residual=max(r["rel_residual"] for r in outs.values()),
+                   peak_bytes=max(r["peak_bytes"] for r in outs.values()), seconds=took)
+    return label, reading, {"dia_spmv_padded": r0["k3"], "sgs_apply": r0["k4"]}
 
 
 def main() -> int:
@@ -3377,13 +3569,15 @@ def main() -> int:
         # wrapper), bound_ms k2_bytes, at poisson_2d(1414) f32; every phase-A
         # system and dtype in cases, with the kernel and tile the rule of
         # ops/dia_spmv.py staged_plan took (variant); launches are phase B's
-        # and phase G's measured runs' (cg on DIA, cg_solve)
+        # and phase G's measured runs' (cg on DIA, cg_solve) and phase X's
+        # distributed padded DIA solve's on rank 0 (the shard's products)
         entry("dia_staged_kernel / dia_padded_kernel (dia_spmv_padded, dia_spmv_streamed)",
               _SOURCE, f"{_PALLAS}:254", counts["dia_spmv_padded"] + glaunch["dia_spmv_padded"]
-              + ulaunch["dia_spmv_padded"],
+              + ulaunch["dia_spmv_padded"] + xlaunch["dia_spmv_padded"],
               stats["dia_spmv_padded"], phase_b_launches=counts["dia_spmv_padded"],
               phase_g_launches=glaunch["dia_spmv_padded"],
               phase_u_launches=ulaunch["dia_spmv_padded"],
+              phase_x_launches=xlaunch["dia_spmv_padded"],
               also_replaces=f"{_PALLAS}:281", wrapper_ms=stats["dia_spmv_padded"]["wrapper_ms"],
               variant=stats["dia_spmv_padded"]["variant"],
               cases=stats["dia_spmv_padded"]["cases"]),
@@ -3415,13 +3609,15 @@ def main() -> int:
         # every phase-A case that took the ring kernel; variants: what the
         # rule of ops/trisweep.py variant_of took on each phase-A case;
         # launches are phase P's, phase Q's (the 3-D solves, every apply the
-        # ring kernel) and phase U's
+        # ring kernel), phase U's and phase X's distributed padded DIA
+        # solve's on rank 0 (the per-sweep kernels over the SGS window)
         entry("sgs_apply (smm_sgs_apply_*: window_kernel forward + backward with D; large "
               "reach: ring_kernel forward + backward)", _TRI_SOURCE,
               f"{_TRI_PALLAS}:54",
-              pcounts["sgs_apply"] + qlaunch["sgs_apply"] + ulaunch["sgs_apply"],
+              pcounts["sgs_apply"] + qlaunch["sgs_apply"] + ulaunch["sgs_apply"]
+              + xlaunch["sgs_apply"],
               stats["sgs_apply"], phase_u_launches=ulaunch["sgs_apply"],
-              phase_q_launches=qlaunch["sgs_apply"],
+              phase_q_launches=qlaunch["sgs_apply"], phase_x_launches=xlaunch["sgs_apply"],
               entry=f"{_TRI_PALLAS}:168", wrapper_ms=stats["sgs_apply"]["wrapper_ms"],
               traffic_bound_ms=stats["sgs_apply"]["traffic_bound_ms"],
               large_reach=stats["sgs_apply"]["large_reach"],

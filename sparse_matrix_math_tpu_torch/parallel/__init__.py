@@ -2,7 +2,8 @@
 
 Port of ``sparse_matrix_math_tpu/parallel/``: ``mesh.py``, ``dist.py``,
 ``dist_dia.py``, ``dist_stencil.py``, ``dist_wsell.py``, ``dist_rsell.py``,
-``dist_df64.py`` and ``dist_multigrid.py``.  One process per
+``dist_df64.py`` and ``dist_multigrid.py``, and the port's own
+``dist_padded.py``.  One process per
 device; every rank runs the same program on its own row block, and a
 distributed operand carries the mesh (the process group) it was built on.
 The JAX concepts map so:
@@ -47,6 +48,14 @@ fused pair                                       panel vector, or of the stacked
                                                  collective per JAX ``psum``
 ``all_gather(..., tiled=True)``                  ``all_gather_into_tensor`` under NCCL, the list
 (``dist.py:302``)                                form under gloo
+(no counterpart: the JAX package distributes     ``distribute_dia_rows(local_csr, mesh)``: each
+the whole operator from one host array)          rank lays out its own rows only, offsets found
+                                                 on its device and agreed over the ranks;
+                                                 ``dist_padded_solve(op, b_local, ...,
+                                                 method=, preconditioner=,
+                                                 preconditioner_options=)``: the K3 product and
+                                                 the K4 SGS apply over halos of whole planes
+                                                 (``dist_padded.py``, ``open_halo_rows``)
 ``mesh_of`` / ``resolve_mesh``                   the operand's own mesh; a shard-count mismatch
 (``mesh.py:125-161``)                            raises the JAX ``ValueError``, an axis-name
                                                  mismatch a ``ValueError`` naming both axes
@@ -60,10 +69,11 @@ gathers it.
 
 On CUDA devices (``python -m torch.distributed.run --nproc_per_node=N``)
 the W-SELL shard product is the K7 kernel, the routed one K11 per pass and
-K7 last, and nothing moves to the CPU, to gloo or to a plain product when
-the card, NCCL or a kernel fails.  The other shard products (CSR, DIA,
-stencil, double-word DIA, the multigrid levels) are plain PyTorch, as they
-are plain ``jnp`` in the JAX package.
+K7 last, the padded DIA shard's product K3 and its SGS apply K4, and
+nothing moves to the CPU, to gloo or to a plain product when the card,
+NCCL or a kernel fails.  The other shard products (CSR, DIA, stencil,
+double-word DIA, the multigrid levels) are plain PyTorch, as they are plain
+``jnp`` in the JAX package.
 """
 
 from .dist import (
@@ -85,6 +95,7 @@ from .dist_df64 import (
 )
 from .dist_dia import DistDIA, dist_dia_solve, dist_dia_spmv, distribute_dia
 from .dist_multigrid import DistPoissonMG, dist_mg_solve, dist_mg_vcycle, distribute_multigrid
+from .dist_padded import DistPaddedDIA, dist_padded_solve, dist_padded_spmv, distribute_dia_rows
 from .dist_rsell import DistRouted, dist_routed_solve, dist_routed_spmv, distribute_routed
 from .dist_stencil import (
     DistStencil,
@@ -100,6 +111,7 @@ from .mesh import (
     halo_exchange,
     init_distributed,
     open_halo_exchange,
+    open_halo_rows,
     make_mesh,
     put_sharded,
     replicated_sharding,
@@ -115,6 +127,10 @@ __all__ = [
     "distribute_routed",
     "dist_routed_spmv",
     "dist_routed_solve",
+    "DistPaddedDIA",
+    "distribute_dia_rows",
+    "dist_padded_spmv",
+    "dist_padded_solve",
     "DistDfDia",
     "distribute_df_dia",
     "dist_df_dia_spmv",
@@ -150,6 +166,7 @@ __all__ = [
     "spawn_cpu_world",
     "halo_exchange",
     "open_halo_exchange",
+    "open_halo_rows",
     "put_sharded",
     "gather_to_host",
 ]

@@ -18,7 +18,16 @@ distributed layer goes through this module and is counted in
   the sends and receives are posted in one fixed order;
 * :func:`open_halo_exchange` — the non-wrapping neighbour exchange of
   edge planes (the JAX package's ``dist_multigrid._halo``): the first and
-  last ranks, and the only rank of a world of one, receive zeros.
+  last ranks, and the only rank of a world of one, receive zeros; it is
+  :func:`open_halo_rows` of one plane into fresh zeros;
+* :func:`open_halo_rows` — the non-wrapping exchange of a given number of
+  boundary rows, straight into the caller's buffers (the distributed padded
+  DIA path's halos, ``dist_padded.py``): the sides that have no neighbour
+  are left as they are.
+
+While a ``torch.profiler`` records, :func:`all_reduce` opens an
+``smm.allreduce`` span and :func:`open_halo_rows` an ``smm.halo`` span, from
+post to wait (``utils/profiling.py``).
 
 Placement (:func:`put_sharded`) copies only this rank's row block of a host
 array onto its device; :func:`gather_to_host` all-gathers a row-sharded
@@ -41,6 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 __all__ = [
     "ROW_AXIS",
     "RowMesh",
@@ -59,6 +70,7 @@ __all__ = [
     "halo_start",
     "halo_exchange",
     "open_halo_exchange",
+    "open_halo_rows",
     "collectives",
     "reset_collective_counts",
 ]
@@ -74,8 +86,9 @@ _ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THR
 
 # Collectives issued since the last reset: all-reduces, all-gathers, and halo
 # exchanges (``halo``), of which ``halo_wire`` went over the wire (a world of
-# one rank exchanges with itself).
-collectives = {"all_reduce": 0, "all_gather": 0, "halo": 0, "halo_wire": 0}
+# one rank exchanges with itself), and the bytes this rank sent in them
+# (``halo_bytes``).
+collectives = {"all_reduce": 0, "all_gather": 0, "halo": 0, "halo_wire": 0, "halo_bytes": 0}
 
 
 def reset_collective_counts() -> None:
@@ -328,7 +341,8 @@ def put_sharded(host_array, mesh: RowMesh, spec) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
     """Sum of ``t`` over the mesh, in place; every rank gets the same bits."""
     collectives["all_reduce"] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    with span("allreduce"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 
 
@@ -376,6 +390,7 @@ def halo_start(x_local: torch.Tensor, mesh: RowMesh) -> _Halo:
         return _Halo((), x_local, x_local)
     collectives["halo_wire"] += 1
     x_local = x_local.contiguous()
+    collectives["halo_bytes"] += 2 * x_local.numel() * x_local.element_size()
     lo = mesh.global_rank((mesh.rank - 1) % mesh.size)
     hi = mesh.global_rank((mesh.rank + 1) % mesh.size)
     left, right = torch.empty_like(x_local), torch.empty_like(x_local)
@@ -403,21 +418,39 @@ def open_halo_exchange(x_local: torch.Tensor, mesh: RowMesh):
     ``(i, i+1)`` and bwd ``(i+1, i)`` for ``i < P - 1``
     (``dist_multigrid.py:196-203``); the operations are posted in one fixed
     order on every rank."""
-    collectives["halo"] += 1
-    last = x_local[-1:].contiguous()
-    first = x_local[:1].contiguous()
+    last, first = x_local[-1:].contiguous(), x_local[:1].contiguous()
     prev_last, next_first = torch.zeros_like(last), torch.zeros_like(first)
+    open_halo_rows(first, last, prev_last, next_first, mesh)
+    return prev_last, next_first
+
+
+def open_halo_rows(first: torch.Tensor, last: torch.Tensor, into_prev: torch.Tensor,
+                   into_next: torch.Tensor, mesh: RowMesh) -> None:
+    """The non-wrapping exchange of boundary rows, in place: ``first``
+    (this rank's first rows) goes to the previous rank and arrives there in
+    its ``into_next``; ``last`` (this rank's last rows) goes to the next
+    rank and arrives in its ``into_prev``.  A side with no neighbour (the
+    previous one of rank 0, the next one of the last rank, both in a world
+    of one) sends nothing, and its buffer is left as it is: the caller's
+    zeros stand for a Dirichlet boundary.  Every tensor must be contiguous
+    (a slice of a 1-D vector is); the receiving buffers get the sender's
+    shape and dtype.  The operations are posted in one fixed order on every
+    rank and waited for here, inside one ``smm.halo`` span."""
+    collectives["halo"] += 1
     ops = []
     if mesh.rank + 1 < mesh.size:
         hi = mesh.global_rank(mesh.rank + 1)
         ops += [dist.P2POp(dist.isend, last, hi, mesh.group, _FWD),
-                dist.P2POp(dist.irecv, next_first, hi, mesh.group, _BWD)]
+                dist.P2POp(dist.irecv, into_next, hi, mesh.group, _BWD)]
+        collectives["halo_bytes"] += last.numel() * last.element_size()
     if mesh.rank > 0:
         lo = mesh.global_rank(mesh.rank - 1)
         ops += [dist.P2POp(dist.isend, first, lo, mesh.group, _BWD),
-                dist.P2POp(dist.irecv, prev_last, lo, mesh.group, _FWD)]
-    if ops:
-        collectives["halo_wire"] += 1
+                dist.P2POp(dist.irecv, into_prev, lo, mesh.group, _FWD)]
+        collectives["halo_bytes"] += first.numel() * first.element_size()
+    if not ops:
+        return
+    collectives["halo_wire"] += 1
+    with span("halo"):
         for w in dist.batch_isend_irecv(ops):
             w.wait()
-    return prev_last, next_first

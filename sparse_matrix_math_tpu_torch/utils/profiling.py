@@ -19,20 +19,28 @@ timeline as the device operations, so :func:`trace`'s Chrome trace carries
 them and each device operation or idle gap falls under the span open at
 its launch.  They nest by time under ``smm.solve``:
 
-* ``smm.solve`` — one :func:`~..solvers.api.solve` call, whole;
+* ``smm.solve`` — one :func:`~..solvers.api.solve` call, whole, or one
+  ``parallel.dist_padded_solve``;
 * ``smm.precond_build`` — a preconditioner built for a solve
-  (``api._build_preconditioner_for``), or a factor re-laid into the padded
-  layout (``_padded.padded_preconditioner``);
+  (``api._build_preconditioner_for``), a factor re-laid into the padded
+  layout (``_padded.padded_preconditioner``), or a distributed padded SGS
+  window laid out (``parallel/dist_padded.py``);
 * ``smm.iteration`` — one pass of a chunk loop (``_loop.passes``,
   ``_loop.chunk``): every executed iteration, frozen ones (after
   convergence, to the chunk's end) included;
 * ``smm.spmv`` — one operator product of the padded (DIA) or grid-stencil
-  solve path;
+  solve path, or of the distributed padded DIA path;
 * ``smm.precond_apply`` — one preconditioner apply of those paths;
 * ``smm.verify`` — one outer round's true-residual check;
 * ``smm.host_sync`` — one counted host readback (``_loop.read``,
   ``_loop.running``, ``_loop.to_host``), the events
-  ``_loop.host_syncs`` counts.
+  ``_loop.host_syncs`` counts;
+* ``smm.halo`` — one non-wrapping halo exchange
+  (``parallel/mesh.py:open_halo_rows``, which ``open_halo_exchange`` calls),
+  from its post to its wait, inside the product, apply or build that needs
+  it;
+* ``smm.allreduce`` — one ``parallel/mesh.py:all_reduce``: each dot of a
+  distributed solve.
 
 With no profiler recording, :func:`span` is one flag check and a shared
 no-op context: no environment variable or option turns spans on.
