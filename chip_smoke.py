@@ -16,15 +16,21 @@ timings: the DIA SpMV kernels (K2/K3 from a captured CUDA graph, with the
 kernel and tile the rule of ``ops/dia_spmv.py:staged_plan`` takes: the
 staged kernel or one thread per row), then the fused SGS (K4) and IC(0)/ILU(0) (K5)
 sweep applies at 1, 2 and 4 sweeps, each with the variant the rule of
-``ops/trisweep.py:variant_of`` takes (halo-window kernels, or the
-large-reach ring kernel), timed from a captured CUDA graph.  Phase B resets the launch counters,
+``ops/trisweep.py:variant_of`` takes (halo-window kernels, the scalar
+variant for an SGS of a constant-coefficient stencil, or the large-reach
+ring kernel), timed from a captured CUDA graph; an SGS found to be a
+constant-coefficient stencil is held to the plain apply on its stored
+diagonals, and on the 3-D systems the check that found it to its plain
+version and the ring or per-sweep kernels to the same plain apply
+(:func:`sweep_cases`).  Phase B resets the launch counters,
 then solves at full width through the public entry points on a CUDA
 ``CSRMatrix`` (auto-route to DIA, padded solve, kernel matvec), checks each
 result against an independent host residual computed with scipy, and checks
 the counters.  Phase P does the same for the preconditioned path: SGS,
 IC(0) and ILU(0) built by ``from_matrix(csr, method="jacobi", sweeps=4)``,
 every apply one launch of K4 or K5.  Phase Q does the same on 3-D systems,
-where every apply takes K4/K5's ring kernel: ``solve`` with CG + SGS(4) on
+where every IC(0) apply takes K5's ring kernel and every SGS apply K4's
+scalar variant: ``solve`` with CG + SGS(4) on
 ``poisson_3d(243)`` f32, PCG + IC0(4) on ``poisson_3d_27pt(128)`` f32 and
 BiCGStab + SGS(4) on ``poisson_3d(243)`` f64, each held to the host's
 residual and to the same solve over the plain applies (status, iterations,
@@ -321,11 +327,16 @@ def traffic_bytes(pre, sgs: bool, itemsize: int, variant: str) -> int:
     diagonal, the strict diagonals (where there is a sweep) and, backward in
     SGS, D are read once and x is written once; the forward result is read
     back by the backward launch (halo rows read again by a neighbouring
-    tile, and the ring kernel's levels in L2, not counted)."""
+    tile, and the ring kernel's levels in L2, not counted).  The scalar
+    variant (a constant-coefficient stencil's diagonals as scalars): per
+    direction the first sweep reads the rhs and writes x, and each further
+    sweep reads the rhs and x and writes x; no sweep, the scale alone."""
     per_row = 0
     for p, mid in ((pre.p_lower, False), (pre.p_upper, sgs)):
         nd = 0 if p is None else len(p.offsets)
-        if variant in ("window", "ring"):
+        if variant == "scalar":
+            per_row += 2 if not nd or pre.sweeps == 1 else 2 + 3 * (pre.sweeps - 2)
+        elif variant in ("window", "ring"):
             per_row += 3 + (nd if nd and pre.sweeps > 1 else 0) + mid
         else:
             per_row += 3 + 2 * mid + (0 if p is None else (pre.sweeps - 1) * (nd + 4))
@@ -360,10 +371,107 @@ def graph_ms(torch, fn, calls: int = 20, samples: int = 5) -> float:
     return statistics.median(times)
 
 
+def stored_sgs(K, pre, diags_p, offsets, nnz):
+    """``pre``, an SGS over rows ``[pre.lead, pre.lead + rows)`` of the
+    padded diagonals ``diags_p`` (``offsets`` ascending, the main one among
+    them), with its strict parts as views of those stored diagonals, as an
+    SGS of other values holds them: what K4 and its variants are held to."""
+    main, rows = offsets.index(0), pre.shape[0]
+
+    def part(sl):
+        if not offsets[sl]:
+            return None
+        return K.PaddedDIA(diags_p=diags_p[sl], offsets=tuple(offsets[sl]), shape=(rows, rows),
+                           nnz=nnz, n_total=diags_p.shape[1], lblk=pre.lead // K._BLOCK,
+                           nblk=-(-rows // K._BLOCK))
+
+    return dataclasses.replace(pre, p_lower=part(slice(0, main)),
+                               p_upper=part(slice(main + 1, None)))
+
+
+def scalar_parts_match(T, torch, pre, stored) -> bool:
+    """Each strict part of ``pre`` that is a ``ScalarFactor``, laid out
+    afresh from its scalars, is the stored diagonals on the SGS's rows bit
+    for bit (one at least; the layout is dropped after)."""
+    rows = slice(pre.lead, pre.lead + pre.shape[0])
+    seen = 0
+    for got, want in ((pre.p_lower, stored.p_lower), (pre.p_upper, stored.p_upper)):
+        if not isinstance(got, T.ScalarFactor):
+            continue
+        fresh = dataclasses.replace(got).diags_p  # the cached layout stays unbuilt
+        if not (got.offsets == want.offsets
+                and bits_equal(torch, fresh[:, rows], want.diags_p[:, rows])):
+            return False
+        seen += 1
+        del fresh
+    return seen > 0
+
+
+def stencil_check_case(T, torch, tag, diags, offsets, inv, first, rows, row0, n_global):
+    """``constant_stencil`` on the card (csrc/trisweep.cu ``scalar_check``)
+    against ``_mismatch_plain``, the plain check in PyTorch, on the same
+    stored diagonals ``diags`` (``diags[k, first:first + rows]`` diagonal
+    ``offsets[k]`` on global rows from ``row0`` of ``n_global``): both find
+    the stencil, the kernel with the stored values, and both refuse it once
+    one entry is one ulp off (a row in the middle, the last row) or a zero
+    across a face is -0.0, each planted alone and put back.  Returns the
+    check kernel's launches."""
+    offsets = tuple(offsets)
+    nx, ny = T._grid_of(offsets)
+    ref = first + T._interior_row(nx, ny, max(map(abs, offsets)), row0, rows, n_global) - row0
+    faces = T._faces(offsets, nx, ny)
+    word = torch.int64 if diags.dtype == torch.float64 else torch.int32
+    before = T.launches["stencil_check"]
+
+    def verdicts():
+        found = T.constant_stencil(diags, offsets, inv, first, rows, row0, n_global,
+                                   lead=first, n_total=diags.shape[1])
+        bad = T._mismatch_plain(diags.view(word), offsets, faces, inv.view(word),
+                                (nx, ny, row0, n_global), first, rows, ref)
+        return found, bool(bad)
+
+    found, bad = verdicts()
+    require(found is not None and not bad, f"{tag}: the check kernel and the plain check both "
+            f"find a constant-coefficient stencil (grid {nx} x {ny}, rows from {row0:,})")
+    stored = dict(zip(offsets, diags[:, ref].tolist()))
+    got = {o: c for p in found if p is not None for o, c in zip(p.offsets, p.coefs)}
+    d = next(p for p in found if p is not None).const_diag
+    require(got == {o: v for o, v in stored.items() if o} and d[0] == stored[0]
+            and d[1] == float(inv[ref]), f"{tag}: the found values are the stored ones")
+    x_lo = offsets.index(-1)
+    mid = row0 + rows // 2 + (1 if (row0 + rows // 2) % nx == 0 else 0)
+    face = -(-(row0 + rows // 3) // nx) * nx  # x = 0: no neighbour at -1
+    last = first + rows - 1
+    k_last = next(k for k, v in enumerate(diags[:, last].tolist()) if offsets[k] and v != 0)
+    planted = [("one ulp off in the middle", x_lo, first + mid - row0, None),
+               ("-0.0 across a face", x_lo, first + face - row0, -0.0),
+               ("one ulp off on the last row", k_last, last, None)]
+    for what, k, col, value in planted:
+        old = diags[k, col].clone()
+        require(value is None or bits_equal(torch, old, torch.zeros_like(old)),
+                f"{tag}: row {col - first + row0:,} holds +0 at offset {offsets[k]}", quiet=True)
+        diags[k, col] = torch.nextafter(old, torch.zeros_like(old)) if value is None else value
+        try:
+            f2, b2 = verdicts()
+        finally:
+            diags[k, col] = old
+        require(f2 is None and b2, f"{tag}: both checks refuse one entry {what} (offset "
+                f"{offsets[k]}, row {col - first + row0:,})")
+    return T.launches["stencil_check"] - before
+
+
 def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
     """K4 and K5 against their plain versions at 1, 2 and 4 sweeps: SGS on
     every system, IC(0) on the symmetric ones but the 14.3M-row system, and
-    ILU(0) on the same ones and the convection-diffusion system."""
+    ILU(0) on the same ones and the convection-diffusion system.  Where the
+    SGS's values are a constant-coefficient stencil (its strict parts
+    ``ScalarFactor`` objects), K4 is held to the plain apply on the stored
+    diagonals, which the factors' layout must equal bit for bit; on the 3-D
+    systems the check that found them is held to its plain version
+    (:func:`stencil_check_case`), and K4's ring kernel (``poisson_3d``) or
+    per-sweep kernels (``poisson_3d_27pt``), which the rule no longer gives
+    these systems, run on the stored diagonals against the plain apply."""
+    from sparse_matrix_math_tpu_torch.ops import dia_spmv as K
     from sparse_matrix_math_tpu_torch.ops import trisweep as T
     from sparse_matrix_math_tpu_torch.precond import PaddedSGS, PaddedTriPair
 
@@ -386,6 +494,8 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
     fns = {"sgs_apply": (T.sgs_apply_fused, T.sgs_apply_plain),
            "tri_pair_apply": (T.tri_pair_apply_fused, T.tri_pair_apply_plain)}
     gen = torch.Generator(device=dev).manual_seed(1)
+    forced = ("ring" if label.startswith("poisson_3d(") else
+              "per-sweep" if label.startswith("poisson_3d_27pt") else None)
     for kname, kind, build in cases:
         fused, plain = fns[kname]
         pre64 = build()
@@ -393,14 +503,34 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
             name = str(dtype).removeprefix("torch.")
             base = pre64.astype(dtype)
             n_rows = base.shape[0]
+            ref_base = base
+            if kname == "sgs_apply" and T._is_scalar(base):
+                # the stored diagonals, laid out as the SGS's factors are
+                a = dia64.astype(dtype)
+                stored = K.pad_dia(a)
+                require(stored.lead == base.lead and stored.n_total == base.n_total,
+                        f"{label} {name}: the stored diagonals' layout is the SGS's", quiet=True)
+                ref_base = stored_sgs(K, base, stored.diags_p, a.offsets, a.nnz)
+                require(scalar_parts_match(T, torch, base, ref_base),
+                        f"{label} {name}: the SGS's factors laid out from their scalars are the "
+                        "stored diagonals bit for bit")
+                if label.startswith("poisson_3d"):
+                    inv = 1.0 / a.diags[a.offsets.index(0)]
+                    stats[kname]["stencil_check_launches"] = stats[kname].get(
+                        "stencil_check_launches", 0) + stencil_check_case(
+                            T, torch, f"constant_stencil {label} {name}", a.diags, a.offsets,
+                            inv, 0, n_rows, 0, n_rows)
+                    del inv
+                del a, stored
             rp = torch.zeros(base.n_total, dtype=dtype, device=dev)
             rp[base.lead:base.lead + n_rows] = (
                 torch.rand(n_rows, generator=gen, device=dev, dtype=torch.float64) - 0.5
             ).to(dtype)
             for sweeps in _SWEEPS:
                 pre = dataclasses.replace(base, sweeps=sweeps)
+                pre_ref = dataclasses.replace(ref_base, sweeps=sweeps)
                 before = T.launches[kname]
-                z, z_ref = fused(pre, rp), plain(pre, rp)
+                z, z_ref = fused(pre, rp), plain(pre_ref, rp)
                 torch.cuda.synchronize()
                 abs_err = (z - z_ref).abs().max().item()
                 tag = f"{kname} {kind} {name} sweeps={sweeps}"
@@ -414,12 +544,24 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
                 variant = T.variant(pre, dev)
                 stats[kname].setdefault("variants", {})[f"{label} {kind} {name} "
                                                          f"sweeps={sweeps}"] = variant
+                if ref_base is not base:
+                    require(bits_equal(torch, z, z_ref), f"{tag}: bit for bit the plain apply on "
+                            "the stored diagonals")
+                if forced and ref_base is not base and sweeps > 1:
+                    # the variant a 3-D SGS of other values takes, on the stored diagonals
+                    zf = T._apply_variant(pre_ref, rp, forced)
+                    require(bits_equal(torch, zf, z_ref),
+                            f"{tag}: K4's {forced} variant on the stored diagonals bit for bit "
+                            "the plain apply")
+                    stats[kname].setdefault("forced", {})[f"{label} {name} "
+                                                          f"sweeps={sweeps}"] = forced
+                    del zf
                 if sweeps != 4:
                     continue  # timed at the main path's sweep count
                 sgs = kname == "sgs_apply"
                 ms = graph_ms(torch, lambda: fused(pre, rp))
                 wrapper_ms = median_ms(lambda: fused(pre, rp), samples=5, calls=10)
-                plain_ms = median_ms(lambda: plain(pre, rp), samples=5, calls=10)
+                plain_ms = median_ms(lambda: plain(pre_ref, rp), samples=5, calls=10)
                 nbytes = apply_bytes(pre, sgs, rp.element_size())
                 moved = traffic_bytes(pre, sgs, rp.element_size(), variant)
                 b_ms = bound_ms(nbytes)
@@ -437,7 +579,7 @@ def sweep_cases(smm, torch, dev, label, csr, dia64, stats):
                         "variant": variant, "ms": ms, "wrapper_ms": wrapper_ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "traffic_bound_ms": bound_ms(moved)}
-            del base, rp, z, z_ref
+            del base, ref_base, rp, z, z_ref
         del pre64
 
 
@@ -704,9 +846,10 @@ class counted_applies:
 
 
 def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
-    """The 3-D preconditioned path at full width: every apply of SGS(4) or
-    IC0(4) on a 3-D stencil takes the ring kernel (the large-reach variant of
-    K4/K5), one launch per application.  Through the public entry point
+    """The 3-D preconditioned path at full width: every apply of IC0(4) on a
+    3-D stencil takes the ring kernel (the large-reach variant of K4/K5), and
+    of SGS(4) the scalar variant (the stencil's diagonals as scalars), one
+    call per application.  Through the public entry point
     ``solve`` on phase A's systems (``kept``): CG + SGS(4) on
     ``poisson_3d(m7)`` f32 (a DIA matrix, so the SGS is built with 4 sweeps,
     ``solvers/api.py:109``), PCG + IC0(4) on ``poisson_3d_27pt(m27)`` f32
@@ -721,7 +864,8 @@ def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
     the phase's readings and the K4/K5 launches of its measured solves."""
     from sparse_matrix_math_tpu_torch.precond import PaddedSGS
 
-    print("== phase Q: 3-D preconditioned solves at full width (the ring kernel)")
+    print("== phase Q: 3-D preconditioned solves at full width (the ring and scalar "
+          "variants)")
     t_start = time.perf_counter()
     p7d, a7d = kept[f"poisson_3d({m7})"]
     p27d, a27d = kept[f"poisson_3d_27pt({m27})"]
@@ -741,10 +885,10 @@ def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
              (f"bicgstab+sgs(4) poisson_3d({m7}) f64", "bicgstab", p7d, a7d, sgs4, 1e-8,
               "sgs_apply")]
     del p7d, a7d, p27d, a27d, p27
-    groups = [("sweeps (ring_kernel)", ("ring_kernel",)),
+    groups = [("sweeps (ring_kernel, scalar_sweep)", ("ring_kernel", "scalar_sweep")),
               ("K3 (dia_staged_kernel / dia_padded_kernel)", ("dia_staged_kernel",
                                                               "dia_padded_kernel"))]
-    out, launches = {}, {"sgs_apply": 0, "tri_pair_apply": 0}
+    out, launches = {}, {"sgs_apply": 0, "tri_pair_apply": 0, "stencil_check": 0}
     for label, method, csr, a, kw, rel, kname in cases:
         b = a @ torch.ones(csr.shape[0], dtype=csr.dtype, device=dev)
         eps = rel * float(torch.linalg.norm(b.double()))
@@ -761,8 +905,9 @@ def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
         require(applies.calls == n_apply and n_apply >= res.iterations,
                 f"{label}: one {kname} launch per preconditioner application ({n_apply} "
                 f"launches, {applies.calls} applications, {res.iterations} iterations)")
-        require(applies.variants == {"ring"}, f"{label}: every apply took the ring kernel "
-                f"({sorted(applies.variants)})")
+        variant = "scalar" if kname == "sgs_apply" else "ring"
+        require(applies.variants == {variant}, f"{label}: every apply took the {variant} "
+                f"variant ({sorted(applies.variants)})")
         res2, wall2 = timed_solve(torch, run)
         repeats = res2.iterations == res.iterations and bits_equal(torch, res2.x, res.x)
         with plain_applies(T):
@@ -777,7 +922,7 @@ def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
         print(f"{label}: {status.name} in {res.iterations} iterations (floor_hit "
               f"{res.floor_hit}), residual_norm {reported:.6e}, host f64 {true64:.6e}, host "
               f"same-precision {same:.6e}, eps {eps:.6e}; wall {wall:.3f} s then "
-              f"{wall2:.3f} s; {n_apply} {kname} launches (ring); repeats bit for bit "
+              f"{wall2:.3f} s; {n_apply} {kname} launches ({variant}); repeats bit for bit "
               f"{repeats}; plain applies: {pstatus.name} in {plain.iterations} "
               f"(floor_hit {plain.floor_hit}), {plain_wall:.3f} s")
         require(status == smm.SolverStatus.SUCCESS, f"{label}: SUCCESS")
@@ -795,6 +940,7 @@ def phase_q(smm, K, T, torch, dev, kept, m7: int = 243, m27: int = 128):
                     f"{label}: x bit for bit the plain applies' solve")
         win, dev_us, dev_n = device_breakdown(torch, run, groups)
         launches[kname] += T.launches[kname]  # the measured runs': timed, repeat, profiled
+        launches["stencil_check"] += T.launches["stencil_check"]  # each solve's SGS build
         its = max(win.iterations, 1)
         per_it = {k: v / its for k, v in dev_us.items()}
         total = sum(per_it.values())
@@ -3302,7 +3448,12 @@ def shard_case(torch, mesh, side: int = _SHARD_SIDE) -> dict:
     K4 over its SGS(4) window against ``sgs_apply_plain``, on the same padded
     operands, bit for bit; then ``dist_padded_solve`` PCG + SGS(4) to
     1e-8 ||b||, its launches counted from zero, and its solution's true
-    residual ||b - A x|| from this rank's CSR rows times the gathered x."""
+    residual ||b - A x|| from this rank's CSR rows times the gathered x.
+    Before the solve, the window's SGS: its factors found a
+    constant-coefficient stencil, their layout the stored window rows bit
+    for bit, and the check kernel that found it held to its plain version
+    on those rows (:func:`stencil_check_case`); K4 is held to the plain
+    apply on the stored rows."""
     from solvebench.operators import stencil
     from sparse_matrix_math_tpu_torch import CSRMatrix
     from sparse_matrix_math_tpu_torch import parallel as par
@@ -3326,9 +3477,17 @@ def shard_case(torch, mesh, side: int = _SHARD_SIDE) -> dict:
     t0 = time.perf_counter()
     local = stencil.csr_rows(cfg, lo, lo + m, dev, f64, CSRMatrix)
     op = par.distribute_dia_rows(local, mesh)
+    checks = T.launches["stencil_check"]
     lay = DP._layout(op, 4)
     sync()
     layout_s = time.perf_counter() - t0
+    psgs = lay.psgs
+    stored = stored_sgs(K, psgs, lay.pdia.diags_p, op.offsets, op.nnz)
+    scalar = T._is_scalar(psgs) and scalar_parts_match(T, torch, psgs, stored)
+    stencil_check_case(T, torch, f"rank {mesh.rank}'s SGS window", lay.pdia.diags_p, op.offsets,
+                       psgs.inv_diag_p, psgs.lead, psgs.shape[0],
+                       op.row_start - (lay.lead - psgs.lead), op.shape[0])
+    checks = T.launches["stencil_check"] - checks
 
     def rows_times(x):
         """This rank's rows of A times the whole ``x``, plain torch."""
@@ -3346,9 +3505,9 @@ def shard_case(torch, mesh, side: int = _SHARD_SIDE) -> dict:
                                                       lay.lead, m, xp))
     rp = lay.pdia.to_padded(torch.rand(m, dtype=f64, device=dev, generator=gen))
     DP._fill_halo(rp, lay, mesh, lay.depth)
-    z = T.sgs_apply_fused(lay.psgs, rp)
-    k4_equal = torch.equal(z, T.sgs_apply_plain(lay.psgs, rp))
-    del xp, y, rp, z
+    z = T.sgs_apply_fused(psgs, rp)
+    k4_equal = bits_equal(torch, z, T.sgs_apply_plain(stored, rp))
+    del xp, y, rp, z, stored
 
     # b = A x_true, x_true = 1 + 0.05 U(-1, 1): the same whole vector on every rank
     gen.manual_seed(5)
@@ -3368,7 +3527,8 @@ def shard_case(torch, mesh, side: int = _SHARD_SIDE) -> dict:
     halos, reduces = M.collectives["halo"] - halos, M.collectives["all_reduce"] - reduces
     rel = norm(b - rows_times(M.all_gather(res.x, mesh))) / bn
     return {"rows": m, "reach": op.reach, "depth": lay.depth, "layout_s": layout_s,
-            "k3_equal": k3_equal, "k4_equal": k4_equal, "status": res.status_enum().name,
+            "k3_equal": k3_equal, "k4_equal": k4_equal, "scalar": scalar,
+            "stencil_check": checks, "status": res.status_enum().name,
             "iterations": res.iterations, "wall_s": wall, "k3": k3, "k4": k4, "halos": halos,
             "all_reduces": reduces, "x_rows": int(res.x.shape[0]), "rel_residual": rel,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
@@ -3399,10 +3559,13 @@ def phase_x_shards(torch, side: int = _SHARD_SIDE):
     4-card HPCG cell's: :func:`shard_case` in one process per card, on
     every card of the machine up to 4 (a machine of one card runs one rank,
     whose shard has no halo).  Holds on every rank K3 and K4 to their plain
-    versions, the solve's status, its iterations alike on every rank, one
-    K3 or K4 launch for each exchange (every product and apply a kernel),
-    the rank's rows as x, and the true residual at most 1.01e-8 ||b||.
-    Returns the reading and rank 0's launches."""
+    versions (K4 on the stored window rows), the window's SGS found a
+    constant-coefficient stencil (the check kernel as its plain version,
+    launched once by the build and four times by the case), the solve's
+    status, its iterations alike on every rank, one K3 or K4 launch for each
+    exchange (every product and apply a kernel), the rank's rows as x, and
+    the true residual at most 1.01e-8 ||b||.  Returns the reading and rank
+    0's launches."""
     import multiprocessing
     import queue
     import shutil
@@ -3443,12 +3606,17 @@ def phase_x_shards(torch, side: int = _SHARD_SIDE):
           f"{max(r['wall_s'] for r in outs.values()):.3f} s; layout "
           f"{max(r['layout_s'] for r in outs.values()):.2f} s; reach {r0['reach']}, SGS "
           f"window halo {r0['depth']} rows; rank 0: K3 {r0['k3']}, K4 {r0['k4']} launches, "
-          f"{r0['halos']} exchanges, {r0['all_reduces']} all-reduces; peak "
+          f"{r0['halos']} exchanges, {r0['all_reduces']} all-reduces, "
+          f"{r0['stencil_check']} stencil checks; peak "
           f"{max(r['peak_bytes'] for r in outs.values()):,} B a card; {took:.1f} s in all")
     for rank, r in sorted(outs.items()):
         require(r["k3_equal"] and r["k4_equal"],
                 f"{label}, rank {rank}: K3 over the halo and K4 over the window bit for bit "
                 "dia_spmv_padded_plain and sgs_apply_plain on the same padded operands",
+                quiet=rank > 0)
+        require(r["scalar"] and r["stencil_check"] == 5,
+                f"{label}, rank {rank}: the SGS window's factors found as scalars, laid out "
+                f"the stored rows bit for bit ({r['stencil_check']} check kernel launches)",
                 quiet=rank > 0)
         require(r["status"] == "SUCCESS" and r["iterations"] == r0["iterations"]
                 and r["x_rows"] == r["rows"],
@@ -3462,12 +3630,13 @@ def phase_x_shards(torch, side: int = _SHARD_SIDE):
                 f"{label}, rank {rank}: true residual {r['rel_residual']:.4e} <= 1e-8 ||b|| "
                 "(+1%)", quiet=rank > 0)
     reading = {key: r0[key] for key in ("status", "iterations", "reach", "depth", "k3", "k4",
-                                        "halos", "all_reduces")}
+                                        "halos", "all_reduces", "stencil_check")}
     reading.update(ranks=k, wall_s=max(r["wall_s"] for r in outs.values()),
                    layout_s=max(r["layout_s"] for r in outs.values()),
                    rel_residual=max(r["rel_residual"] for r in outs.values()),
                    peak_bytes=max(r["peak_bytes"] for r in outs.values()), seconds=took)
-    return label, reading, {"dia_spmv_padded": r0["k3"], "sgs_apply": r0["k4"]}
+    return label, reading, {"dia_spmv_padded": r0["k3"], "sgs_apply": r0["k4"],
+                            "stencil_check": r0["stencil_check"]}
 
 
 def main() -> int:
@@ -3608,16 +3777,25 @@ def main() -> int:
         # sweeps 4 (the window kernels); large_reach the same figures of
         # every phase-A case that took the ring kernel; variants: what the
         # rule of ops/trisweep.py variant_of took on each phase-A case;
-        # launches are phase P's, phase Q's (the 3-D solves, every apply the
-        # ring kernel), phase U's and phase X's distributed padded DIA
-        # solve's on rank 0 (the per-sweep kernels over the SGS window)
+        # launches are phase P's, phase Q's (the 3-D solves, every SGS apply
+        # the scalar variant, every IC(0) apply the ring kernel), phase U's
+        # and phase X's distributed padded DIA solve's on rank 0 (the scalar
+        # variant over the SGS window); forced: the variant phase A ran on
+        # the stored diagonals of each 3-D case beside the rule's;
+        # stencil_check_launches: csrc/trisweep.cu scalar_check's launches
+        # in phase A's checks, phase Q's SGS builds and phase X's shard
+        # windows (rank 0: its build and its checks)
         entry("sgs_apply (smm_sgs_apply_*: window_kernel forward + backward with D; large "
-              "reach: ring_kernel forward + backward)", _TRI_SOURCE,
+              "reach: ring_kernel forward + backward; constant-coefficient stencils: "
+              "smm_sgs_apply_scalar_*, scalar_sweep)", _TRI_SOURCE,
               f"{_TRI_PALLAS}:54",
               pcounts["sgs_apply"] + qlaunch["sgs_apply"] + ulaunch["sgs_apply"]
               + xlaunch["sgs_apply"],
               stats["sgs_apply"], phase_u_launches=ulaunch["sgs_apply"],
               phase_q_launches=qlaunch["sgs_apply"], phase_x_launches=xlaunch["sgs_apply"],
+              stencil_check_launches=stats["sgs_apply"].get("stencil_check_launches", 0)
+              + qlaunch["stencil_check"] + xlaunch["stencil_check"],
+              forced=stats["sgs_apply"].get("forced", {}),
               entry=f"{_TRI_PALLAS}:168", wrapper_ms=stats["sgs_apply"]["wrapper_ms"],
               traffic_bound_ms=stats["sgs_apply"]["traffic_bound_ms"],
               large_reach=stats["sgs_apply"]["large_reach"],

@@ -108,6 +108,22 @@
 // ring kernel's grid comes from smm_trisweep_ring_blocks_per_sm, both
 // called once by the wrapper.
 //
+// Constant coefficients: the scalar variant (scalar_sweep, its own entry
+// smm_sgs_apply_scalar_*).  Where the SGS factors are those of a grid
+// stencil with one value a diagonal (HPCG's operator, the Laplacians: each
+// strict diagonal one value where its neighbour lies inside the grid and an
+// exact 0 across a face, the main diagonal one value), the rule gives the
+// shapes the window kernels do not take to the per-sweep scheme with each
+// strict diagonal read as one scalar and its face mask computed from the
+// row's grid position.  A sweep then streams the rhs, x and its output
+// alone: 3 vectors against the 27-point float64 sweep's 17.  The init step
+// is formed inside the first sweep from its source (sweeps - 1 launches a
+// direction), and SGS's middle scale d * x inside every backward step, so
+// an SGS(4) apply moves 16 vectors (2.15 GB at 256^3 float64, 0.64 ms at
+// 3.35 TB/s).  ops/trisweep.py finds the property in the stored values when
+// the factors are built (scalar_check: one pass over the diagonals, one
+// host read) and never from a description of the operator.
+//
 // Exactness: every product, sum and difference is rounded on its own
 // (__fmul_rn / __fadd_rn / __fsub_rn and the __d* forms; no FMA
 // contraction), the strict diagonals are summed in ascending-offset order,
@@ -760,6 +776,243 @@ int direction(const T* src, const T* mid, const T* invd, T* rhs2_out, const T* d
   return 0;
 }
 
+// -- the scalar variant: a constant-coefficient stencil's diagonals as scalars --
+
+// A row's position on the grid: rows of nx points, planes of ny rows (0: a
+// 2-D grid), the global row of the layout's first data row, and the
+// system's rows.  Global row g lies at padded row lead + g - row0.  The
+// caller bounds n_global below 2^31.
+struct Grid {
+  unsigned nx, ny;
+  long long row0, n_global;
+};
+
+// The faces of the grid a row lies on, and that a diagonal's neighbour
+// crosses when its row lies on them: x and y by the row's position in its
+// line and plane, the outermost axis (z, or y on a 2-D grid) by the
+// system's first and last plane (line).  A diagonal's neighbour lies inside
+// the grid, and its stored value is the diagonal's one value, where the
+// row lies on none of the diagonal's faces; elsewhere the stored value is
+// an exact 0 (ops/trisweep.py:_row_faces and _faces are the same bits).
+constexpr int kXLo = 1, kXHi = 2, kYLo = 4, kYHi = 8, kZLo = 16, kZHi = 32;
+
+__device__ __forceinline__ int faces_at(const Grid& grid, unsigned ix, unsigned iy,
+                                        long long g) {
+  int at = (ix == 0 ? kXLo : 0) | (ix + 1 == grid.nx ? kXHi : 0);
+  long long outer = grid.nx;
+  int lo = kYLo, hi = kYHi;
+  if (grid.ny != 0) {
+    at |= (iy == 0 ? kYLo : 0) | (iy + 1 == grid.ny ? kYHi : 0);
+    outer *= grid.ny;
+    lo = kZLo;
+    hi = kZHi;
+  }
+  return at | (g < outer ? lo : 0) | (g >= grid.n_global - outer ? hi : 0);
+}
+
+__device__ __forceinline__ int faces_of(const Grid& grid, long long g) {
+  const unsigned gu = static_cast<unsigned>(g);
+  return faces_at(grid, gu % grid.nx, grid.ny != 0 ? (gu / grid.nx) % grid.ny : 0, g);
+}
+
+struct DiagFaces {
+  int off[kMaxDiags];
+  int faces[kMaxDiags];
+};
+
+// One direction's strict part: each diagonal's offset, faces and one value.
+template <typename T>
+struct ScalarDiags {
+  DiagFaces f;
+  T c[kMaxDiags];
+};
+
+// Consecutive rows a thread of the scalar variant computes: the grid
+// position, found by two divisions, serves them all.  SGS(4) on an H100 at
+// 1 / 2 / 4 rows: 1.450 / 1.392 / 1.722 ms at poisson_3d_27pt(256) float64,
+// 0.632 / 0.501 / 0.598 ms at poisson_3d(243) float32 (CUDA graphs).  The
+// kernel is bound by its instructions as much as by its bytes: with a range
+// test of each neighbour's global row in place of the outermost axis' face
+// bits, 1 row took 1.79 / 0.65 ms.
+constexpr int kScalarRows = 2;
+
+// One launch of a direction: y[e] = (rhs[e] - sum_k c_k x[e + off_k]) * invd,
+// c_k read as an exact 0 where the row lies on one of the diagonal's faces,
+// as the stored diagonal holds it; rhs = d * src (kMid, SGS's middle scale)
+// or src.  kFirst: x is the direction's init step x_0 = rhs * invd, formed at
+// each neighbour from src (an exact 0 off the data rows, as scale_kernel
+// writes it) instead of read, so the init step needs no launch of its own.
+// nd == 0: the init step alone.  The same roundings in the same order as
+// scale_kernel then sweep_kernel on the stored diagonals.
+template <typename T, bool kFirst, bool kMid>
+__global__ void __launch_bounds__(kThreads)
+scalar_sweep(const T* __restrict__ src, const T* __restrict__ x, T* __restrict__ y,
+             const ScalarDiags<T> s, int nd, const Grid grid, T d, T invd, long long n_total,
+             long long lead, long long n_rows) {
+  const long long e0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kScalarRows;
+  long long g = grid.row0 + (e0 - lead);
+  unsigned ix = 0, iy = 0;
+  bool placed = false;
+#pragma unroll
+  for (int j = 0; j < kScalarRows; ++j, ++g) {
+    const long long e = e0 + j;
+    if (e >= n_total) return;
+    if (e < lead || e >= lead + n_rows) {
+      y[e] = T(0);
+      continue;
+    }
+    if (!placed) {
+      const unsigned gu = static_cast<unsigned>(g);
+      ix = gu % grid.nx;
+      iy = grid.ny != 0 ? (gu / grid.nx) % grid.ny : 0;
+      placed = true;
+    }
+    const int at = faces_at(grid, ix, iy, g);
+    const T rhs = kMid ? mul_rn(d, src[e]) : src[e];
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < kMaxDiags; ++k) {
+      if (k >= nd) break;
+      const long long h = e + s.f.off[k];
+      T v;
+      if constexpr (kFirst) {
+        v = T(0);
+        if (h >= lead && h < lead + n_rows) {
+          v = __ldg(src + h);
+          v = mul_rn(kMid ? mul_rn(d, v) : v, invd);
+        }
+      } else {
+        v = __ldg(x + h);
+      }
+      const T t = mul_rn((at & s.f.faces[k]) == 0 ? s.c[k] : T(0), v);
+      acc = k == 0 ? t : add_rn(acc, t);
+    }
+    y[e] = nd > 0 ? mul_rn(sub_rn(rhs, acc), invd) : mul_rn(rhs, invd);
+    if (++ix == grid.nx) {
+      ix = 0;
+      if (grid.ny != 0 && ++iy == grid.ny) iy = 0;
+    }
+  }
+}
+
+// One direction of the scalar variant: a launch for the init step fused into
+// the first sweep, then one per further sweep, alternating first / second;
+// the init step alone where there is no sweep.  *result is the buffer
+// holding the last write.
+template <typename T, bool kMid>
+int scalar_direction(const T* src, const ScalarDiags<T>& s, int nd, const Grid& grid, T d,
+                     T invd, int sweeps, T* first, T* second, long long n_total,
+                     long long lead, long long n_rows, cudaStream_t stream, T** result) {
+  const unsigned int blocks = blocks_for((n_total + kScalarRows - 1) / kScalarRows);
+  const int launches = nd == 0 || sweeps == 1 ? 1 : sweeps - 1;
+  T* cur = nullptr;
+  T* nxt = first;
+  for (int k = 1; k <= launches; ++k) {
+    if (k == 1) {
+      scalar_sweep<T, true, kMid><<<blocks, kThreads, 0, stream>>>(
+          src, nullptr, nxt, s, sweeps == 1 ? 0 : nd, grid, d, invd, n_total, lead, n_rows);
+    } else {
+      scalar_sweep<T, false, kMid><<<blocks, kThreads, 0, stream>>>(
+          src, cur, nxt, s, nd, grid, d, invd, n_total, lead, n_rows);
+    }
+    const int code = static_cast<int>(cudaGetLastError());
+    if (code != 0) return code;
+    cur = nxt;
+    nxt = cur == first ? second : first;
+  }
+  *result = cur;
+  return 0;
+}
+
+// The detection's check, one pass over the stored words: each diagonal k of
+// rows [first, first + rows) (row stride `stride`) holds its word at row
+// `ref` where the neighbour lies inside the grid and an exact 0 (all bits
+// clear) elsewhere, and the inverse diagonal holds its word at `ref` on
+// every row.  A warp with a row that does not sets *bad.
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+scalar_check(const W* __restrict__ diags, long long stride, const DiagFaces f, int nd,
+             const W* __restrict__ invd, const Grid grid, long long first, long long rows,
+             long long ref, int* bad) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  bool ok = true;
+  if (i < rows) {
+    const long long e = first + i;
+    const long long g = grid.row0 + i;
+    const int at = faces_of(grid, g);
+    for (int k = 0; k < nd; ++k) {
+      const W want = (at & f.faces[k]) == 0 ? __ldg(diags + k * stride + ref) : W(0);
+      ok &= __ldg(diags + k * stride + e) == want;
+    }
+    ok &= __ldg(invd + e) == __ldg(invd + ref);
+  }
+  if (!__all_sync(0xffffffffu, ok) && (threadIdx.x & 31) == 0) atomicOr(bad, 1);
+}
+
+bool load_grid(long long nx, long long ny, long long row0, long long n_global, Grid* grid) {
+  if (nx < 1 || ny < 0 || nx > 0x7fffffff || ny > 0x7fffffff || row0 < 0 || n_global < 1 ||
+      n_global > 0x7fffffff) {
+    return false;
+  }
+  *grid = Grid{static_cast<unsigned>(nx), static_cast<unsigned>(ny), row0, n_global};
+  return true;
+}
+
+bool load_faces(const void* offsets, const void* faces, int nd, DiagFaces* f) {
+  if (nd < 0 || nd > kMaxDiags) return false;
+  *f = DiagFaces{};
+  for (int k = 0; k < nd; ++k) {
+    f->off[k] = static_cast<const int*>(offsets)[k];
+    f->faces[k] = static_cast<const int*>(faces)[k];
+  }
+  return true;
+}
+
+template <typename T>
+bool load_scalar(const void* offsets, const void* faces, const void* coefs, int nd,
+                 ScalarDiags<T>* s) {
+  *s = ScalarDiags<T>{};
+  if (!load_faces(offsets, faces, nd, &s->f)) return false;
+  for (int k = 0; k < nd; ++k) s->c[k] = static_cast<const T*>(coefs)[k];
+  return true;
+}
+
+// The whole SGS apply in the scalar variant: forward from r into w0 / w1,
+// backward (rhs = d * the forward result) ending in out.  The data rows of
+// the layout are global rows [row0, row0 + n_rows) of the grid.
+template <typename T>
+int launch_scalar(const void* r_, void* w0_, void* w1_, void* out_, int sweeps,
+                  long long n_total, long long lead, long long n_rows, const void* l_offsets,
+                  const void* l_faces, const void* l_coefs, int nd_l, const void* u_offsets,
+                  const void* u_faces, const void* u_coefs, int nd_u, T d, T invd, long long nx,
+                  long long ny, long long row0, long long n_global, void* stream_) {
+  ScalarDiags<T> lower, upper;
+  Grid grid;
+  if (sweeps < 1 || n_rows < 1 || lead < 0 || lead + n_rows > n_total ||
+      !load_scalar(l_offsets, l_faces, l_coefs, nd_l, &lower) ||
+      !load_scalar(u_offsets, u_faces, u_coefs, nd_u, &upper) ||
+      !load_grid(nx, ny, row0, n_global, &grid) || row0 + n_rows > n_global) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  T* w0 = static_cast<T*>(w0_);
+  T* w1 = static_cast<T*>(w1_);
+  T* out = static_cast<T*>(out_);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  T* xw = nullptr;
+  int code = scalar_direction<T, false>(static_cast<const T*>(r_), lower, nd_l, grid, d, invd,
+                                        sweeps, w0, w1, n_total, lead, n_rows, stream, &xw);
+  if (code != 0) return code;
+  T* other = xw == w0 ? w1 : w0;
+  const int writes = nd_u > 0 && sweeps > 1 ? sweeps - 1 : 1;
+  T* z = nullptr;
+  code = scalar_direction<T, true>(xw, upper, nd_u, grid, d, invd, sweeps,
+                                   writes % 2 == 1 ? out : other, writes % 2 == 1 ? other : out,
+                                   n_total, lead, n_rows, stream, &z);
+  if (code != 0) return code;
+  return z == out ? 0 : static_cast<int>(cudaErrorUnknown);
+}
+
 // -- launching -----------------------------------------------------------------
 
 // max |offset|, and whether every offset has the direction's sign.
@@ -1098,6 +1351,61 @@ int smm_tri_pair_apply_f64(const void* r, const void* invd_l, const void* invd_u
   return launch_apply<double>(r, invd_l, invd_u, nullptr, ld, l_offsets, nd_l, ud, u_offsets,
                               nd_u, w0, w1, out, sweeps, n_total, lead, n_rows, tile, ring,
                               ring_rows, sync, grid, stream);
+}
+
+// r, w0, w1, out, sweeps, n_total, lead, n_rows, l_offsets, l_faces, l_coefs,
+// nd_l, u_offsets, u_faces, u_coefs, nd_u, d, invd, nx, ny, row0, n_global,
+// stream: the SGS apply of a constant-coefficient stencil (the scalar
+// variant); offsets and faces are int32, coefs and d, invd the dtype's.
+int smm_sgs_apply_scalar_f32(const void* r, void* w0, void* w1, void* out, int sweeps,
+                             long long n_total, long long lead, long long n_rows,
+                             const void* l_offsets, const void* l_faces, const void* l_coefs,
+                             int nd_l, const void* u_offsets, const void* u_faces,
+                             const void* u_coefs, int nd_u, float d, float invd, long long nx,
+                             long long ny, long long row0, long long n_global, void* stream) {
+  return launch_scalar<float>(r, w0, w1, out, sweeps, n_total, lead, n_rows, l_offsets, l_faces,
+                              l_coefs, nd_l, u_offsets, u_faces, u_coefs, nd_u, d, invd, nx, ny,
+                              row0, n_global, stream);
+}
+
+int smm_sgs_apply_scalar_f64(const void* r, void* w0, void* w1, void* out, int sweeps,
+                             long long n_total, long long lead, long long n_rows,
+                             const void* l_offsets, const void* l_faces, const void* l_coefs,
+                             int nd_l, const void* u_offsets, const void* u_faces,
+                             const void* u_coefs, int nd_u, double d, double invd, long long nx,
+                             long long ny, long long row0, long long n_global, void* stream) {
+  return launch_scalar<double>(r, w0, w1, out, sweeps, n_total, lead, n_rows, l_offsets,
+                               l_faces, l_coefs, nd_l, u_offsets, u_faces, u_coefs, nd_u, d,
+                               invd, nx, ny, row0, n_global, stream);
+}
+
+// The detection's check (scalar_check) of nd stored diagonals, rows [first,
+// first + rows) at row stride `stride` elements, float64 (f64) or float32
+// words; *bad (an int on the card, zeroed by the caller) is set where a row
+// does not match.
+int smm_scalar_stencil_check(int f64, const void* diags, long long stride, const void* offsets,
+                             const void* faces, int nd, const void* invd, long long nx,
+                             long long ny, long long row0, long long n_global, long long first,
+                             long long rows, long long ref, void* bad, void* stream) {
+  DiagFaces f;
+  Grid grid;
+  if (!load_faces(offsets, faces, nd, &f) || !load_grid(nx, ny, row0, n_global, &grid) ||
+      rows < 1 || first < 0 || ref < first || ref >= first + rows || stride < first + rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = blocks_for(rows);
+  int* flag = static_cast<int*>(bad);
+  if (f64) {
+    scalar_check<unsigned long long><<<blocks, kThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(diags), stride, f, nd,
+        static_cast<const unsigned long long*>(invd), grid, first, rows, ref, flag);
+  } else {
+    scalar_check<unsigned int><<<blocks, kThreads, 0, s>>>(
+        static_cast<const unsigned int*>(diags), stride, f, nd,
+        static_cast<const unsigned int*>(invd), grid, first, rows, ref, flag);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The opt-in of every window and ring kernel to the block's 227 KB of

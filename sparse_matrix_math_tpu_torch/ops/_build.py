@@ -40,6 +40,13 @@ _LL = ctypes.c_longlong
 _PADDED = [_P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _P, _LL, _LL, _P]
 _APPLY = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _LL, _LL, _LL, _LL, _P, _I, _P,
           _I, _P]
+
+
+def _scalar_apply(word):
+    return [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P, _P, _I, word, word, _LL,
+            _LL, _LL, _LL, _P]
+
+
 _SIGNATURES = {
     # diags, xp, y, offsets, ndiags, n_total, lead, n_rows, tile, segs,
     # stage_bytes, grid, stream
@@ -66,6 +73,15 @@ _SIGNATURES = {
     # f64, sgs, nd_l, nd_u, sweeps, out: the ring kernel's blocks per SM,
     # each direction's chunk rows
     "smm_trisweep_ring_blocks_per_sm": [_I, _I, _I, _I, _I, _P, _P, _P],
+    # r, w0, w1, out, sweeps, n_total, lead, n_rows, l_offsets, l_faces,
+    # l_coefs, nd_l, u_offsets, u_faces, u_coefs, nd_u, d, invd, nx, ny, row0,
+    # n_global, stream
+    "smm_sgs_apply_scalar_f32": _scalar_apply(ctypes.c_float),
+    "smm_sgs_apply_scalar_f64": _scalar_apply(ctypes.c_double),
+    # f64, diags, stride, offsets, faces, nd, invd, nx, ny, row0, n_global,
+    # first, rows, ref, bad, stream
+    "smm_scalar_stencil_check": [_I, _P, _LL, _P, _P, _I, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                                 _P, _P],
     # vals, cols, chunk_ptr, row_of, x, y, n_slabs, n_rows, k, stream
     "smm_sell_spmm_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
     "smm_sell_spmm_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],

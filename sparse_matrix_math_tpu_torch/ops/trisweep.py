@@ -32,7 +32,15 @@ dependences' order and keeping every level but the last in a global ring of
 keep every SM busy; and ``"per-sweep"`` (one launch per step,
 ``2 * sweeps`` per apply) on the smaller ones, where the ring kernel's
 chain of levels measured slower, and for strict offsets of the wrong sign
-for their direction.  :func:`sgs_apply_windowed_plain` /
+for their direction.  An SGS whose factors hold a constant-coefficient grid
+stencil (:func:`constant_stencil` finds one in the stored values when the
+factors are built; each strict part is then a :class:`ScalarFactor`) takes,
+where the window kernels do not, ``"scalar"``: the per-sweep scheme with
+each strict diagonal read as one scalar and its face mask computed from the
+row's grid position, the init step inside the first sweep (``sweeps - 1``
+launches a direction); :func:`sgs_apply_scalar_plain` replays it.
+:data:`variant_launches` counts the applies of each variant.
+:func:`sgs_apply_windowed_plain` /
 :func:`tri_pair_apply_windowed_plain` and :func:`sgs_apply_ring_plain` /
 :func:`tri_pair_apply_ring_plain` replay the window and ring kernels'
 decompositions (tiles or chunk tickets, cones, rings and their index math)
@@ -45,7 +53,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +63,8 @@ from .dia_spmv import _DTYPES, _MAX_DIAGS, dia_spmv_padded_plain
 __all__ = [
     "sgs_apply_fused", "tri_pair_apply_fused", "sgs_apply_plain", "tri_pair_apply_plain",
     "sgs_apply_ring_plain", "tri_pair_apply_ring_plain", "RingPlan", "ring_plan", "ring_chunk",
-    "variant_of", "launches", "reset_launch_counts",
+    "variant_of", "launches", "variant_launches", "reset_launch_counts", "ScalarFactor",
+    "constant_stencil", "sgs_apply_scalar_plain",
 ]
 
 # csrc/trisweep.cu's window and ring kernels: rows per chunk; the window
@@ -93,13 +102,16 @@ _SMALL_WINDOW_BYTES = 32768
 # at poisson_3d_27pt(128) float64 (its diagonals read at every level).
 _RING_CHUNKS_PER_SM = 1.5
 
-# Kernel applies per wrapper, counted where the kernels are launched.
-launches = {"sgs_apply": 0, "tri_pair_apply": 0}
+# Kernel applies per wrapper, and per variant, and the launches of
+# constant_stencil's check kernel, counted where the kernels are launched.
+launches = {"sgs_apply": 0, "tri_pair_apply": 0, "stencil_check": 0}
+variant_launches = {"window": 0, "ring": 0, "per-sweep": 0, "scalar": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, variant_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 # -- plain versions: the kernels' operations in the kernels' order -------------
@@ -168,7 +180,7 @@ def window_tile(pre, num_sms: int, itemsize: int) -> int:
 
 def variant_of(pre, num_sms: int, itemsize: int) -> str:
     """The rule that picks an apply's variant on the card: ``"window"``,
-    ``"ring"`` or ``"per-sweep"``.
+    ``"scalar"``, ``"ring"`` or ``"per-sweep"``.
 
     The window kernels' tile is the layout's chunks split evenly over
     ``num_sms`` CTAs, one per SM.  They run when, in both directions, the
@@ -178,7 +190,9 @@ def variant_of(pre, num_sms: int, itemsize: int) -> str:
     again) or, with a tile of one chunk, the tile and the halo hold at most
     ``_SMALL_WINDOW_BYTES`` of a vector.  ``levels`` is ``sweeps``, or 1 for
     an empty strict part; ``reach`` is the direction's largest ``|offset|``.
-    Of the other shapes the ring kernel takes those where, in each direction
+    Of the other shapes an SGS of a constant-coefficient stencil
+    (:func:`_is_scalar`) takes the scalar variant; of the rest the ring
+    kernel takes those where, in each direction
     with a sweep, its chunks (:func:`ring_chunk`) are at least
     ``_RING_CHUNKS_PER_SM`` an SM, and the general instantiation keeps its
     diagonals in shared memory (:func:`_ring_resident`); the per-sweep
@@ -208,12 +222,12 @@ def _ring_resident(nd: int, itemsize: int) -> bool:
 
 def _rule_of(pre, num_sms: int, itemsize: int) -> tuple:
     return _rule(_offsets(pre.p_lower), _offsets(pre.p_upper), pre.n_total, int(pre.sweeps),
-                 hasattr(pre, "diag_p"), num_sms, itemsize)
+                 hasattr(pre, "diag_p"), num_sms, itemsize, _is_scalar(pre))
 
 
 @functools.lru_cache(maxsize=256)
 def _rule(lower: tuple, upper: tuple, n_total: int, sweeps: int, sgs: bool,
-          num_sms: int, itemsize: int) -> tuple:
+          num_sms: int, itemsize: int, scalar: bool) -> tuple:
     """``(variant, tile)`` of :func:`variant_of` on plain values, worked out
     once per layout; the tile is 0 but for the window kernels."""
     sides = ((lower, 2, -1), (upper, 3 if sgs else 2, 1))
@@ -229,6 +243,8 @@ def _rule(lower: tuple, upper: tuple, n_total: int, sweeps: int, sgs: bool,
            and halo_fits((_levels(offsets, sweeps) - 1) * _reach(offsets))
            for offsets, fixed, _ in sides):
         return "window", int(tile)
+    if scalar:
+        return "scalar", 0
     swept = [o for o, _, _ in sides if _levels(o, sweeps) > 1]
     if all(_ring_resident(len(o), itemsize)
            and -(-n_total // ring_chunk(len(o), sweeps, itemsize))
@@ -243,8 +259,9 @@ def _num_sms(index: int) -> int:
 
 
 def variant(pre, device) -> str:
-    """``"window"``, ``"ring"`` or ``"per-sweep"``: the variant an apply of
-    ``pre`` takes on the CUDA ``device`` (the rule of :func:`variant_of`)."""
+    """``"window"``, ``"scalar"``, ``"ring"`` or ``"per-sweep"``: the variant
+    an apply of ``pre`` takes on the CUDA ``device`` (the rule of
+    :func:`variant_of`)."""
     device = torch.device(device)
     itemsize = torch.empty((), dtype=pre.dtype).element_size()
     return variant_of(pre, _num_sms(device.index or 0), itemsize)
@@ -456,6 +473,307 @@ def tri_pair_apply_ring_plain(pair, rp: torch.Tensor,
                            plan.ring_rows, False)
 
 
+# -- constant-coefficient stencils: the scalar variant ---------------------------
+
+# csrc/trisweep.cu's face bits: the faces of the grid a diagonal's neighbour
+# crosses when its row lies on them (a row's own faces are the same bits)
+_X_LO, _X_HI, _Y_LO, _Y_HI, _Z_LO, _Z_HI = 1, 2, 4, 8, 16, 32
+# the scalar variant's global rows are 32-bit on the card
+_MAX_GLOBAL_ROWS = 2 ** 31 - 1
+
+
+def _split(off: int, nx: int, ny: int) -> Tuple[int, int, int]:
+    """``off`` as the nearest steps ``(dx, dy, dz)`` on a grid of rows of
+    ``nx`` points and planes of ``ny`` rows (0: a 2-D grid)."""
+    plane = nx * ny
+    dz = (off + plane // 2) // plane if plane else 0
+    rest = off - dz * plane
+    dy = (rest + nx // 2) // nx
+    return rest - dy * nx, dy, dz
+
+
+@functools.lru_cache(maxsize=256)
+def _grid_of(offsets: tuple) -> Optional[Tuple[int, int]]:
+    """The grid ``(nx, ny)`` (``ny`` 0: a 2-D grid) on which ``offsets`` are
+    neighbours at steps of -1, 0 or 1 an axis, from the offsets alone, or
+    None (a 1-D stencil has no rows).  The nonzero ``|offset|`` fall in runs of one
+    or three (a neighbour's x steps about its y and z step) with 1, the x
+    neighbour, apart; the least centre of a run is ``nx``, and the plane's
+    stride the next centre, or the one ``nx`` past it where that is a centre
+    too (the next is then ``P - nx``: 19 and 27 points)."""
+    values = sorted({abs(o) for o in offsets if o})
+    if 1 in values and 2 in values:
+        return None
+    centres, run = [], []
+    for a in [v for v in values if v != 1] + [None]:
+        if run and (a is None or a != run[-1] + 1):
+            if len(run) not in (1, 3):
+                return None
+            centres.append(run[len(run) // 2])
+            run = []
+        if a is not None:
+            run.append(a)
+    if not centres:
+        return None
+    nx, ny = centres[0], 0
+    if len(centres) > 1:
+        plane = centres[1] + nx if centres[1] + nx in centres else centres[1]
+        if plane % nx:
+            return None
+        ny = plane // nx
+    if any(max(map(abs, _split(o, nx, ny))) > 1 for o in offsets):
+        return None
+    return nx, ny
+
+
+def _faces(offsets: tuple, nx: int, ny: int) -> Tuple[int, ...]:
+    """The faces each offset's neighbour crosses (csrc/trisweep.cu's bits)."""
+    out = []
+    for off in offsets:
+        dx, dy, dz = _split(off, nx, ny)
+        out.append((dx < 0) * _X_LO | (dx > 0) * _X_HI | (dy < 0) * _Y_LO | (dy > 0) * _Y_HI
+                   | (dz < 0) * _Z_LO | (dz > 0) * _Z_HI)
+    return tuple(out)
+
+
+def _row_faces(g: torch.Tensor, nx: int, ny: int, n_global: int) -> torch.Tensor:
+    """The faces global rows ``g`` lie on (csrc/trisweep.cu ``faces_at``): x
+    and y by the position in the line and plane, the outermost axis (z, or y
+    on a 2-D grid) by the system's first and last plane (line)."""
+    ix = g % nx
+    at = (ix == 0) * _X_LO + (ix == nx - 1) * _X_HI
+    outer, lo, hi = nx, _Y_LO, _Y_HI
+    if ny:
+        iy = (g // nx) % ny
+        at = at + (iy == 0) * _Y_LO + (iy == ny - 1) * _Y_HI
+        outer, lo, hi = nx * ny, _Z_LO, _Z_HI
+    return at + (g < outer) * lo + (g >= n_global - outer) * hi
+
+
+def _inside(faces: int, at: torch.Tensor) -> torch.Tensor:
+    """Whether each row's neighbour across ``faces`` lies inside the grid:
+    the stored diagonal holds its one value there, an exact 0 elsewhere."""
+    return (at & faces) == 0
+
+
+def _interior_row(nx: int, ny: int, reach: int, row0: int, rows: int,
+                  n_global: int) -> Optional[int]:
+    """The first global row of ``[row0, row0 + rows)`` whose every neighbour
+    lies inside the grid (x and y positions 1, ``reach`` rows from either
+    end of the system), or None."""
+    if nx < 3 or 0 < ny < 3:
+        return None
+    outer, first = (nx * ny, nx + 1) if ny else (nx, 1)
+    g = -(-(max(row0, reach) - first) // outer) * outer + first
+    return g if g < row0 + rows and g + reach < n_global else None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalarFactor:
+    """A strict factor of a constant-coefficient grid stencil: diagonal
+    ``k`` is ``coefs[k]`` on the data rows whose neighbour at ``offsets[k]``
+    lies inside the grid of ``nx`` points a row and ``ny`` rows a plane (0:
+    no such axis; the outermost axis ends with the system's ``n_global``
+    rows), and an exact 0 elsewhere.  The data rows are global rows from
+    ``row0``, at ``lead`` in the padded layout.  ``const_diag`` is ``(d,
+    1 / d)``, the one value of the SGS's main diagonal and of its inverse on
+    the data rows.  The scalar variant reads ``coefs`` and ``const_diag``;
+    :attr:`diags_p` lays the diagonals out as a
+    :class:`~.dia_spmv.PaddedDIA` holds them, at first use, for the plain
+    versions and the other variants."""
+
+    offsets: Tuple[int, ...]
+    coefs: Tuple[float, ...]
+    const_diag: Tuple[float, float]
+    nx: int
+    ny: int
+    row0: int
+    n_global: int
+    shape: Tuple[int, int]
+    lead: int
+    n_total: int
+    dtype: torch.dtype
+    device: torch.device
+
+    @functools.cached_property
+    def faces(self) -> Tuple[int, ...]:
+        return _faces(self.offsets, self.nx, self.ny)
+
+    def coef_rows(self, k: int, g: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+        """Diagonal ``k`` on global rows ``g`` (on faces ``at``), as the
+        scalar variant forms it."""
+        c = torch.tensor(self.coefs[k], dtype=self.dtype, device=self.device)
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        return torch.where(_inside(self.faces[k], at), c, zero)
+
+    @functools.cached_property
+    def diags_p(self) -> torch.Tensor:
+        n = self.shape[0]
+        out = torch.zeros((len(self.offsets), self.n_total), dtype=self.dtype, device=self.device)
+        g = torch.arange(self.row0, self.row0 + n, device=self.device)
+        at = _row_faces(g, self.nx, self.ny, self.n_global)
+        for k in range(len(self.offsets)):
+            out[k, self.lead:self.lead + n] = self.coef_rows(k, g, at)
+        return out
+
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The C entry's offsets, faces and values, kept as long as the
+        factor (the entry reads them by address)."""
+        word = np.float64 if self.dtype == torch.float64 else np.float32
+        return (np.asarray(self.offsets, dtype=np.int32), np.asarray(self.faces, dtype=np.int32),
+                np.asarray(self.coefs, dtype=word))
+
+    def astype(self, dtype: torch.dtype) -> "ScalarFactor":
+        """The factor in ``dtype``, each value rounded as the padded
+        vectors' ``.to(dtype)`` rounds it."""
+        def cast(values):
+            return tuple(torch.tensor(values, dtype=self.dtype).to(dtype).tolist())
+
+        return dataclasses.replace(self, coefs=cast(self.coefs),
+                                   const_diag=cast(self.const_diag), dtype=dtype)
+
+
+def _mismatch_plain(words, offsets, faces, inv_words, grid, first, rows, ref) -> torch.Tensor:
+    """csrc/trisweep.cu ``scalar_check`` on the stored words: True where a
+    row does not match."""
+    nx, ny, row0, n_global = grid
+    g = torch.arange(row0, row0 + rows, device=words.device)
+    at = _row_faces(g, nx, ny, n_global)
+    zero = torch.zeros((), dtype=words.dtype, device=words.device)
+    bad = (inv_words[first:first + rows] != inv_words[ref]).any()
+    for k, f in enumerate(faces):
+        want = torch.where(_inside(f, at), words[k, ref], zero)
+        bad |= (words[k, first:first + rows] != want).any()
+    return bad
+
+
+def constant_stencil(diags: torch.Tensor, offsets, inv_diag: torch.Tensor, first: int,
+                     rows: int, row0: int, n_global: int, *, lead: int, n_total: int
+                     ) -> Optional[Tuple[Optional[ScalarFactor], Optional[ScalarFactor]]]:
+    """The strict parts ``(lower, upper)`` of stored DIA diagonals as
+    :class:`ScalarFactor` objects (None for an empty one), where the
+    diagonals hold a constant-coefficient grid stencil, found from the
+    values and offsets alone; their data rows lie at ``lead`` of a padded
+    layout of ``n_total`` rows.
+
+    ``diags[k, first:first + rows]`` are diagonal ``offsets[k]`` (the main
+    one among them) on global rows ``[row0, row0 + rows)`` of a system of
+    ``n_global`` rows, and ``inv_diag`` is indexed as ``diags``' columns.
+    The grid comes from the offsets (:func:`_grid_of`), each diagonal's
+    value from a row whose every neighbour lies inside it; then one pass
+    (csrc/trisweep.cu ``scalar_check`` on the card) checks, bit for bit,
+    that every diagonal holds that value where its neighbour lies inside the
+    grid and an exact 0 elsewhere, and that ``inv_diag`` is one value, and
+    one host read brings the verdict and the values; ``launches["stencil_check"]``
+    counts the check kernel's launches.  Returns None where any row differs,
+    where the offsets fit no grid, or where the grid has no interior row in
+    the range: the factors then keep their stored diagonals."""
+    offsets = tuple(int(o) for o in offsets)
+    if (diags.dtype not in _DTYPES or diags.device.type not in ("cpu", "cuda") or 0 not in offsets
+            or len(offsets) < 2 or n_global > _MAX_GLOBAL_ROWS):
+        return None
+    grid = _grid_of(offsets)
+    if grid is None:
+        return None
+    nx, ny = grid
+    g = _interior_row(nx, ny, max(abs(o) for o in offsets), row0, rows, n_global)
+    if g is None:
+        return None
+    ref = first + g - row0
+    faces = _faces(offsets, nx, ny)
+    diags = diags.contiguous()
+    word = torch.int64 if diags.dtype == torch.float64 else torch.int32
+    if diags.device.type == "cuda":
+        from . import _build
+
+        bad = torch.zeros((), dtype=torch.int32, device=diags.device)
+        offs = np.asarray(offsets, dtype=np.int32)
+        face_bits = np.asarray(faces, dtype=np.int32)
+        with torch.cuda.device(diags.device):
+            code = _build.library().smm_scalar_stencil_check(
+                int(word == torch.int64), diags.data_ptr(), diags.stride(0), offs.ctypes.data,
+                face_bits.ctypes.data, len(offsets), inv_diag.contiguous().data_ptr(), nx, ny,
+                row0, n_global, first, rows, ref, bad.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "constant_stencil (the check of the stored diagonals)")
+        launches["stencil_check"] += 1
+    else:
+        bad = _mismatch_plain(diags.view(word), offsets, faces, inv_diag.view(word),
+                              (nx, ny, row0, n_global), first, rows, ref)
+    read = torch.cat([diags[:, ref], inv_diag[ref:ref + 1], bad.to(diags.dtype).reshape(1)])
+    *values, inv, verdict = read.tolist()
+    if verdict:
+        return None
+    const_diag = (values[offsets.index(0)], inv)
+
+    def part(sign: int) -> Optional[ScalarFactor]:
+        keep = [k for k, o in enumerate(offsets) if o * sign > 0]
+        if not keep:
+            return None
+        return ScalarFactor(offsets=tuple(offsets[k] for k in keep),
+                            coefs=tuple(values[k] for k in keep), const_diag=const_diag, nx=nx,
+                            ny=ny, row0=row0, n_global=n_global, shape=(rows, rows), lead=lead,
+                            n_total=n_total, dtype=diags.dtype, device=diags.device)
+
+    return part(-1), part(1)
+
+
+def _is_scalar(pre) -> bool:
+    """Whether ``pre`` is an SGS of a constant-coefficient stencil: its
+    strict parts :class:`ScalarFactor` objects, one at least (each carries
+    the main diagonal's one value)."""
+    facs = [p for p in (pre.p_lower, pre.p_upper) if p is not None]
+    return hasattr(pre, "diag_p") and bool(facs) and all(isinstance(p, ScalarFactor)
+                                                         for p in facs)
+
+
+def _direction_scalar(pfac, src: torch.Tensor, pre, mid: bool) -> torch.Tensor:
+    """One direction of csrc/trisweep.cu's scalar variant: each diagonal's
+    rows formed from its value and the face mask, the init step formed at
+    each neighbour from ``src`` (an exact 0 off the data rows) inside the
+    first sweep, and, with ``mid``, the rhs ``d * src``."""
+    d, invd = (torch.tensor(v, dtype=src.dtype, device=src.device)
+               for v in (pre.p_lower or pre.p_upper).const_diag)
+    lead, n = pre.lead, pre.shape[0]
+    rows = slice(lead, lead + n)
+    rhs = d * src[rows] if mid else src[rows]
+    if pfac is None or pre.sweeps == 1:
+        out = torch.zeros_like(src)
+        out[rows] = rhs * invd
+        return out
+    g = torch.arange(pfac.row0, pfac.row0 + n, device=src.device)
+    at = _row_faces(g, pfac.nx, pfac.ny, pfac.n_global)
+    coefs = [pfac.coef_rows(k, g, at) for k in range(len(pfac.offsets))]
+    e = torch.arange(lead, lead + n, device=src.device)
+    zero = torch.zeros((), dtype=src.dtype, device=src.device)
+    x = None
+    for _ in range(pre.sweeps - 1):
+        acc = None
+        for k, off in enumerate(pfac.offsets):
+            if x is None:
+                v = src[lead + off:lead + off + n]
+                v = (d * v if mid else v) * invd
+                xv = torch.where((e + off >= lead) & (e + off < lead + n), v, zero)
+            else:
+                xv = x[lead + off:lead + off + n]
+            term = coefs[k] * xv
+            acc = term if acc is None else acc + term
+        x = torch.zeros_like(src)
+        x[rows] = (rhs - acc) * invd
+    return x
+
+
+def sgs_apply_scalar_plain(psgs, rp: torch.Tensor) -> torch.Tensor:
+    """K4's scalar variant replayed in PyTorch, for an SGS of a
+    constant-coefficient stencil: equal to :func:`sgs_apply_plain` on the
+    stored diagonals bit for bit."""
+    if not _is_scalar(psgs):
+        raise ValueError("the scalar variant takes an SGS of a constant-coefficient stencil")
+    y = _direction_scalar(psgs.p_lower, rp, psgs, False)
+    return _direction_scalar(psgs.p_upper, y, psgs, True)
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -469,7 +787,13 @@ def _check(pre, vectors, rp: torch.Tensor) -> None:
                          f"({pre.n_total},) vector in the padded layout")
     if int(pre.sweeps) < 1:
         raise ValueError(f"sweeps is {pre.sweeps}; the apply needs at least 1")
-    tensors = list(vectors) + [p.diags_p for p in (pre.p_lower, pre.p_upper) if p is not None]
+    factors = [p for p in (pre.p_lower, pre.p_upper) if p is not None]
+    for p in factors:
+        if isinstance(p, ScalarFactor) and (p.dtype != rp.dtype or p.device != rp.device
+                                            or p.n_total != pre.n_total):
+            raise TypeError(f"a factor is {p.dtype} on {p.device} over {p.n_total} rows but r "
+                            f"is {rp.dtype} on {rp.device} over {pre.n_total}")
+    tensors = list(vectors) + [p.diags_p for p in factors if not isinstance(p, ScalarFactor)]
     for t in tensors:
         if t.device != rp.device or t.dtype != rp.dtype:
             raise TypeError(f"a factor is {t.dtype} on {t.device} but r is {rp.dtype} "
@@ -535,9 +859,10 @@ def _ring_plan(lower: tuple, upper: tuple, n_total: int, sweeps: int, sgs: bool,
 
 def _apply_variant(pre, rp: torch.Tensor, variant: str, tile: int = 0) -> torch.Tensor:
     """K4 or K5 on the card in the given variant (``"window"`` at ``tile``
-    rows, ``"ring"`` at the plan of :func:`_ring_plan`, or ``"per-sweep"``),
-    whatever the rule would pick, counted like the wrappers: the card tests
-    hold every variant to the plain version with it."""
+    rows, ``"ring"`` at the plan of :func:`_ring_plan`, ``"per-sweep"``, or
+    ``"scalar"`` for an SGS of a constant-coefficient stencil), whatever
+    the rule would pick, counted like the wrappers: the card tests hold
+    every variant to the plain version with it."""
     from . import _build
 
     sgs = hasattr(pre, "diag_p")
@@ -545,6 +870,8 @@ def _apply_variant(pre, rp: torch.Tensor, variant: str, tile: int = 0) -> torch.
            rp)
     if rp.device.type != "cuda":
         raise ValueError("_apply_variant launches a kernel: rp must be a CUDA tensor")
+    if variant == "scalar":
+        return _launch_scalar(pre, rp)
     lib = _build.library()
     f64 = rp.dtype == torch.float64
     if sgs:
@@ -589,6 +916,37 @@ def _launch(name: str, fn, pre, rp: torch.Tensor, first, second, kind: str,
                   torch.cuda.current_stream().cuda_stream)
     _build.check(code, name)
     launches[name] += 1
+    variant_launches[kind] += 1
+    return out
+
+
+def _scalar_args(p) -> tuple:
+    """(offsets, faces, values addresses, count) of a scalar strict part,
+    or empty ones."""
+    if p is None:
+        empty = _offsets_array(()).ctypes.data
+        return empty, empty, empty, 0
+    return (*(a.ctypes.data for a in p.c_args), len(p.offsets))
+
+
+def _launch_scalar(psgs, rp: torch.Tensor) -> torch.Tensor:
+    """K4's scalar variant (csrc/trisweep.cu ``smm_sgs_apply_scalar_*``)."""
+    from . import _build
+
+    if not _is_scalar(psgs):
+        raise ValueError("the scalar variant takes an SGS of a constant-coefficient stencil")
+    lib = _build.library()
+    fn = lib.smm_sgs_apply_scalar_f64 if rp.dtype == torch.float64 else lib.smm_sgs_apply_scalar_f32
+    grid = psgs.p_lower or psgs.p_upper
+    w0, w1, out = torch.empty_like(rp), torch.empty_like(rp), torch.empty_like(rp)
+    with torch.cuda.device(rp.device):
+        code = fn(rp.data_ptr(), w0.data_ptr(), w1.data_ptr(), out.data_ptr(), int(psgs.sweeps),
+                  psgs.n_total, psgs.lead, psgs.shape[0], *_scalar_args(psgs.p_lower),
+                  *_scalar_args(psgs.p_upper), *grid.const_diag, grid.nx, grid.ny, grid.row0,
+                  grid.n_global, torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "sgs_apply (the scalar variant)")
+    launches["sgs_apply"] += 1
+    variant_launches["scalar"] += 1
     return out
 
 
@@ -600,10 +958,12 @@ def sgs_apply_fused(psgs, rp: torch.Tensor) -> torch.Tensor:
         return sgs_apply_plain(psgs, rp)
     from . import _build
 
+    kind, tile = _rule_of(psgs, _num_sms(rp.device.index), rp.element_size())
+    if kind == "scalar":
+        return _launch_scalar(psgs, rp)
     lib = _build.library()
     fn = lib.smm_sgs_apply_f32 if rp.dtype == torch.float32 else lib.smm_sgs_apply_f64
-    return _launch("sgs_apply", fn, psgs, rp, psgs.inv_diag_p, psgs.diag_p,
-                   *_rule_of(psgs, _num_sms(rp.device.index), rp.element_size()))
+    return _launch("sgs_apply", fn, psgs, rp, psgs.inv_diag_p, psgs.diag_p, kind, tile)
 
 
 def tri_pair_apply_fused(pair, rp: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,10 @@ each rank laying out and holding only its own block.
   rows, which the neighbours compute as their own, are swept again here:
   ``2 * depth`` rows beside the ``hi - lo`` own ones, in each direction.
   The first and last ranks have no halo on their outer side, where the
-  window ends at the system's boundary as a single card's does.
+  window ends at the system's boundary as a single card's does.  Where the
+  window's values are those of a constant-coefficient grid stencil (HPCG's
+  operator), the window's strict parts are held as one value a diagonal, at
+  the window's row phase, and K4 reads them as scalars, as on one card.
 
 On CUDA tensors the product and the apply are the kernels or raise; on the
 CPU (gloo) their plain versions run the same index math.  Every dot is a
@@ -53,7 +56,7 @@ import torch
 
 from ..formats.csr import CSRMatrix
 from ..ops.dia_spmv import _BLOCK, _MAX_DIAGS, PaddedDIA, dia_spmv_padded
-from ..ops.trisweep import sgs_apply_fused
+from ..ops.trisweep import constant_stencil, sgs_apply_fused
 from ..precond._factorize import FactorizationError
 from ..precond.padded_sgs import PaddedSGS
 from ..precond.preconditioners import _SGS_MIN_DIAG
@@ -196,9 +199,8 @@ def _build_layout(op: DistPaddedDIA, sweeps: Optional[int]) -> _Layout:
 
 def _window_sgs(op: DistPaddedDIA, diags_p: torch.Tensor, guard: int, depth: int,
                 sweeps: int) -> PaddedSGS:
-    """The SGS factors over the window ``[guard - before, guard + rows +
-    after)`` of the padded diagonals: views of their strict rows, and the
-    diagonal and its inverse, 0 outside the window."""
+    """The shard's SGS factors over its window ``[guard - before, guard +
+    rows + after)`` of the padded diagonals (:func:`window_sgs`)."""
     mesh, m = op.mesh, op.rows
     if 0 not in op.offsets:
         raise FactorizationError("SGS requires a stored main diagonal")
@@ -208,24 +210,41 @@ def _window_sgs(op: DistPaddedDIA, diags_p: torch.Tensor, guard: int, depth: int
         raise FactorizationError(f"SGS requires |diagonal| >= {_SGS_MIN_DIAG} on every row")
     before = depth if mesh.rank > 0 else 0
     after = depth if mesh.rank + 1 < mesh.size else 0
-    lead, rows = guard - before, m + before + after
+    return window_sgs(diags_p, op.offsets, guard - before, m + before + after, sweeps,
+                      op.row_start - before, op.shape[0], op.nnz)
+
+
+def window_sgs(diags_p: torch.Tensor, offsets: Tuple[int, ...], lead: int, rows: int,
+               sweeps: int, row0: int, n_global: int, nnz: int) -> PaddedSGS:
+    """SGS factors over the window ``[lead, lead + rows)`` of padded
+    diagonals ``diags_p`` (``offsets`` ascending, the main one among them;
+    ``lead`` a whole number of blocks), whose rows are global rows from
+    ``row0`` of a system of ``n_global``: the diagonal and its inverse, 0
+    outside the window, and the strict parts as one value a diagonal where
+    the window holds a constant-coefficient stencil
+    (:func:`~..ops.trisweep.constant_stencil`), else views of their rows."""
+    main = offsets.index(0)
     window = slice(lead, lead + rows)
     diag_p = torch.zeros_like(diags_p[main])
     diag_p[window] = diags_p[main, window]
     inv_diag_p = torch.zeros_like(diag_p)
     inv_diag_p[window] = 1.0 / diag_p[window]
+    n_total = diags_p.shape[1]
+    found = constant_stencil(diags_p, offsets, inv_diag_p, lead, rows, row0, n_global,
+                             lead=lead, n_total=n_total)
 
-    def strict(part: slice) -> Optional[PaddedDIA]:
-        offsets = op.offsets[part]
-        if not offsets:
+    def strict(sign: int, part: slice):
+        if found is not None:
+            return found[sign > 0]
+        if not offsets[part]:
             return None
-        return PaddedDIA(diags_p=diags_p[part], offsets=offsets, shape=(rows, rows),
-                         nnz=op.nnz, n_total=diags_p.shape[1], lblk=lead // _BLOCK,
+        return PaddedDIA(diags_p=diags_p[part], offsets=offsets[part], shape=(rows, rows),
+                         nnz=nnz, n_total=n_total, lblk=lead // _BLOCK,
                          nblk=-(-rows // _BLOCK))
 
-    return PaddedSGS(p_lower=strict(slice(0, main)), p_upper=strict(slice(main + 1, None)),
+    return PaddedSGS(p_lower=strict(-1, slice(0, main)), p_upper=strict(1, slice(main + 1, None)),
                      inv_diag_p=inv_diag_p, diag_p=diag_p, shape=(rows, rows),
-                     sweeps=int(sweeps), lead=lead, n_total=diags_p.shape[1])
+                     sweeps=int(sweeps), lead=lead, n_total=n_total)
 
 
 def _fill_halo(v: torch.Tensor, lay: _Layout, mesh: RowMesh, depth: int) -> None:

@@ -346,7 +346,7 @@ def test_multi_tile_applies_match_plain(cuda_device, kind, name, args, dtype, sw
         pre = PaddedTriPair.from_factors(fac.lower, fac.upper, dia)
         fns = (T.tri_pair_apply_fused, T.tri_pair_apply_plain, "tri_pair_apply")
     large = name == "poisson_3d" and sweeps == 4 and dtype == torch.float64
-    assert T.variant(pre, cuda_device) == ("per-sweep" if large else "window")
+    assert T.variant(pre, cuda_device) == ("scalar" if large else "window")
     _check_apply(pre, *fns[:2], fns[2], dtype, cuda_device)
 
 
@@ -516,8 +516,10 @@ RULE_RING = [("sgs", "poisson_3d", (100,), torch.float32, 4),
 @pytest.mark.parametrize("kind,name,args,dtype,sweeps", RULE_RING,
                          ids=[f"{k}-{n}{a}-{str(d)[6:]}-s{s}" for k, n, a, d, s in RULE_RING])
 def test_rule_gives_large_shapes_the_ring_kernel(cuda_device, kind, name, args, dtype, sweeps):
+    """The factor pairs; an SGS of these constant-coefficient stencils takes
+    the scalar variant."""
     pre, fused, plain = _pre(kind, name, args, dtype, sweeps, cuda_device)
-    assert T.variant(pre, cuda_device) == "ring"
+    assert T.variant(pre, cuda_device) == ("scalar" if kind == "sgs" else "ring")
     _check_apply(pre, fused, plain, "sgs_apply" if kind == "sgs" else "tri_pair_apply", dtype,
                  cuda_device)
 
@@ -550,18 +552,18 @@ def test_ring_applies_repeat(cuda_device):
 def test_ring_apply_in_a_cuda_graph(cuda_device):
     """An apply captured in a CUDA graph: the tickets and flags are zeroed
     on the stream, so each of 3 replays gives the plain version's bits."""
-    pre = PaddedSGS.from_dia(_dia("poisson_3d", (100,), torch.float64, cuda_device), sweeps=4)
+    pre, fused, plain = _pre("ic0", "poisson_3d", (100,), torch.float64, 4, cuda_device)
     assert T.variant(pre, cuda_device) == "ring"
     rp = _padded_rhs(pre, torch.float64, cuda_device, seed=4)
-    want = T.sgs_apply_plain(pre, rp)
+    want = plain(pre, rp)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        T.sgs_apply_fused(pre, rp)  # warm: the opt-in and the occupancy query
+        fused(pre, rp)  # warm: the opt-in and the occupancy query
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        z = T.sgs_apply_fused(pre, rp)
+        z = fused(pre, rp)
     for _ in range(3):
         z.zero_()
         graph.replay()
@@ -579,6 +581,119 @@ def test_ring_replay_matches_the_kernel(cuda_device):
                             kind == "sgs", False, 0)
         replay = T.sgs_apply_ring_plain if kind == "sgs" else T.tri_pair_apply_ring_plain
         assert bits_equal(replay(pre, rp, plan), T._apply_variant(pre, rp, "ring"))
+
+
+# The scalar variant (csrc/trisweep.cu scalar_sweep) on constant-coefficient
+# stencils whose SGS the rule gives it at sweeps 2 and 4 (a halo of more than
+# two tiles), launched at every sweep count: bit for bit the plain apply on
+# the diagonals and the scalar variant's replay.
+SCALAR_CASES = [("poisson_3d_27pt", (64,), torch.float64), ("poisson_3d", (64,), torch.float32)]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+@pytest.mark.parametrize("name,args,dtype", SCALAR_CASES,
+                         ids=[f"{n}{a}-{str(d)[6:]}" for n, a, d in SCALAR_CASES])
+def test_scalar_variant_matches_plain(cuda_device, name, args, dtype, sweeps):
+    pre = PaddedSGS.from_dia(_dia(name, args, dtype, cuda_device), sweeps=sweeps)
+    assert T._is_scalar(pre)
+    if sweeps > 1:
+        assert T.variant(pre, cuda_device) == "scalar"
+    rp = _padded_rhs(pre, dtype, cuda_device, seed=6)
+    before = T.variant_launches["scalar"]
+    _check_apply(pre, lambda p, r: T._apply_variant(p, r, "scalar"), T.sgs_apply_plain,
+                 "sgs_apply", dtype, cuda_device)
+    assert T.variant_launches["scalar"] == before + 1
+    z = T._apply_variant(pre, rp, "scalar")
+    assert bits_equal(z, T.sgs_apply_plain(pre, rp))
+    assert bits_equal(z, T.sgs_apply_scalar_plain(pre, rp))
+
+
+# Grids whose axes are no whole number of the scalar variant's tiles (32 x 8
+# points, 16 planes), 3-D and 2-D (a 2-D grid's lines are the tiles' planes).
+ODD_GRIDS = [((37, 11, 19), 27, torch.float64), ((45, 9, 33), 7, torch.float32),
+             ((70, 41), 5, torch.float32), ((33, 40), 9, torch.float64)]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+@pytest.mark.parametrize("grid,points,dtype", ODD_GRIDS,
+                         ids=[f"{'x'.join(map(str, g))}-{p}pt" for g, p, _ in ODD_GRIDS])
+def test_scalar_variant_on_partial_tiles(cuda_device, grid, points, dtype, sweeps):
+    from solvebench.operators import stencil
+
+    cfg = {"grid": list(grid), "stencil": {"points": points, "diagonal": 26.0,
+                                           "neighbour": -1.0}}
+    dia = smm.dia_from_csr(stencil.csr(cfg, cuda_device, dtype, smm.CSRMatrix))
+    pre = PaddedSGS.from_dia(dia, sweeps=sweeps)
+    assert T._is_scalar(pre)
+    rp = _padded_rhs(pre, dtype, cuda_device, seed=8)
+    z = T._apply_variant(pre, rp, "scalar")
+    assert bits_equal(z, T.sgs_apply_plain(pre, rp))
+
+
+def test_scalar_variant_on_a_shard_window(cuda_device):
+    """A shard's SGS window (``window_sgs``: global rows from one that is no
+    whole number of planes) found and applied as scalars, bit for bit the
+    plain apply."""
+    from sparse_matrix_math_tpu_torch.parallel import dist_padded as DP
+
+    dia = _dia("poisson_3d_27pt", (64,), torch.float64, cuda_device)
+    pdia = K.pad_dia(dia)
+    row0, rows = 12_544, 200_192  # 3 planes and 4,256 rows in; past 4 planes to the end
+    lead = pdia.lead + row0
+    pre = DP.window_sgs(pdia.diags_p, dia.offsets, lead, rows, 4, row0, dia.shape[0], dia.nnz)
+    assert T._is_scalar(pre) and T.variant(pre, cuda_device) == "scalar"
+    rp = torch.zeros(pdia.n_total, dtype=torch.float64, device=cuda_device)
+    rp[lead:lead + rows] = torch.as_tensor(np.random.default_rng(7).standard_normal(rows),
+                                           device=cuda_device)
+    z = T.sgs_apply_fused(pre, rp)
+    # the plain apply on the stored diagonals' rows, as the window held them
+    main = dia.offsets.index(0)
+    stored = dataclasses.replace(pre, **{
+        name: K.PaddedDIA(diags_p=pdia.diags_p[part], offsets=dia.offsets[part],
+                          shape=(rows, rows), nnz=dia.nnz, n_total=pdia.n_total,
+                          lblk=lead // K._BLOCK, nblk=-(-rows // K._BLOCK))
+        for name, part in (("p_lower", slice(0, main)), ("p_upper", slice(main + 1, None)))})
+    assert bits_equal(z, T.sgs_apply_plain(stored, rp))
+    assert bits_equal(z, T.sgs_apply_scalar_plain(pre, rp))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+def test_scalar_check_matches_the_plain_check(cuda_device, dtype):
+    """The check kernel finds what the plain check finds: the stencil and its
+    values, and nothing once one entry is one ulp off or a zero across a face
+    is -0.0."""
+    dia = _dia("poisson_3d_27pt", (24,), dtype, cuda_device)
+    n = dia.shape[0]
+    inv = 1.0 / dia.diags[dia.offsets.index(0)]
+
+    def both(diags):
+        found = [T.constant_stencil(diags.to(dev), dia.offsets, inv.to(dev), 0, n, 0, n,
+                                    lead=0, n_total=n) for dev in ("cpu", cuda_device)]
+        # what was found, apart from the device it lies on
+        return [None if f is None else [dataclasses.replace(p, device=None) for p in f]
+                for f in found]
+
+    cpu, card = both(dia.diags)
+    assert cpu is not None and card == cpu
+    k = dia.offsets.index(-1)
+    for row, value in ((24 * 24 * 5 + 24 * 3 + 7, None), (0, -0.0)):
+        diags = dia.diags.clone()
+        diags[k, row] = (torch.nextafter(diags[k, row], diags.new_tensor(0.0)) if value is None
+                         else value)
+        assert both(diags) == [None, None]
+
+
+def test_scalar_solve_counts_every_apply(cuda_device):
+    """PCG + SGS(4) on a 27-point float64 stencil through ``solve``: every
+    apply is the scalar variant, counted by ``variant_launches``."""
+    csr = smm.poisson_3d_27pt(64, dtype=torch.float64, device=cuda_device)
+    b = csr @ torch.ones(csr.shape[0], dtype=torch.float64, device=cuda_device)
+    T.reset_launch_counts()
+    res = smm.solve(smm.dia_from_csr(csr), b, method="cg", preconditioner="sgs",
+                    epsilon=1e-8 * float(torch.linalg.vector_norm(b)))
+    assert res.status == smm.SolverStatus.SUCCESS
+    assert T.variant_launches["scalar"] == T.launches["sgs_apply"] >= res.iterations
+    assert sum(T.variant_launches.values()) == T.launches["sgs_apply"]
 
 
 # -- general patterns: K6 (ELL), K7 and K8 (W-SELL) -------------------------------

@@ -94,6 +94,7 @@ def _rank_case(mesh, grid):
     out["depth"] = lay.depth
     out["apply"] = lay.pdia.from_padded(z).numpy()
     out["guards_zero"] = _guards_zero(z, lay) and _guards_zero(rp, lay)
+    out["scalar"] = _window_case(op, lay, mesh, rp)
 
     b = _rhs(cfg)
     eps = 1e-8 * float(torch.linalg.vector_norm(b))
@@ -114,6 +115,28 @@ def _rank_case(mesh, grid):
                     "all_reduce": M.collectives["all_reduce"] - reduces,
                     "iterations": res.iterations}
     return out
+
+
+def _bits(t):
+    return t.view(torch.int64)
+
+
+def _window_case(op, lay, mesh, rp):
+    """Whether the window's SGS holds the stencil as scalars, at which global
+    row, its laid-out factors the stored rows and the scalar variant's replay
+    the plain apply, bit for bit."""
+    psgs, main = lay.psgs, op.offsets.index(0)
+    if not T._is_scalar(psgs):
+        return {"engaged": False}
+    window = slice(psgs.lead, psgs.lead + psgs.shape[0])
+    DP._fill_halo(rp, lay, mesh, lay.depth)
+    stored = all(torch.equal(_bits(p.diags_p[:, window]), _bits(lay.pdia.diags_p[part, window]))
+                 for p, part in ((psgs.p_lower, slice(0, main)),
+                                 (psgs.p_upper, slice(main + 1, None))))
+    replay = torch.equal(_bits(T.sgs_apply_scalar_plain(psgs, rp)),
+                         _bits(T.sgs_apply_plain(psgs, rp)))
+    DP._clear_halo(rp, lay, mesh, lay.depth)
+    return {"engaged": True, "row0": psgs.p_lower.row0, "stored": stored, "replay": replay}
 
 
 @pytest.fixture(scope="module")
@@ -183,6 +206,17 @@ def test_solve_matches_one_card(world, single, k, method, pre):
 
 
 @pytest.mark.parametrize("k", WORLDS)
+def test_windows_hold_the_stencil_as_scalars(world, k):
+    """Each rank's SGS window, starting ``depth`` rows before its own rows (no
+    whole number of planes), is found to hold the constant-coefficient
+    stencil at its row phase."""
+    for rank, r in enumerate(world[k]):
+        s = r["scalar"]
+        assert s["engaged"] and s["stored"] and s["replay"]
+        assert s["row0"] == r["lo"] - (r["depth"] if rank > 0 else 0)
+
+
+@pytest.mark.parametrize("k", WORLDS)
 def test_halo_volume(world, k):
     for rank, r in enumerate(world[k]):
         sides = (rank > 0) + (rank < k - 1)
@@ -239,6 +273,7 @@ def _card_case(mesh, grid):
     rp = lay.pdia.to_padded(_vector(n, 9, dev)[lo:hi])
     DP._fill_halo(rp, lay, mesh, lay.depth)
     k4 = T.launches["sgs_apply"]
+    out["variant"] = T.variant(lay.psgs, dev)
     z = T.sgs_apply_fused(lay.psgs, rp)
     out["k4"] = T.launches["sgs_apply"] - k4
     out["k4_equal"] = torch.equal(z, T.sgs_apply_plain(lay.psgs, rp))
@@ -246,10 +281,12 @@ def _card_case(mesh, grid):
     b = _rhs(cfg, dev)
     eps = 1e-8 * float(torch.linalg.vector_norm(b))
     k3, k4 = K.launches["dia_spmv_padded"], T.launches["sgs_apply"]
+    scalar = T.variant_launches["scalar"]
     res = parallel.dist_padded_solve(op, b[lo:hi].clone(), epsilon=eps, method="cg",
                                      **_options("sgs"))
     out["solve"] = (res.status, res.iterations, K.launches["dia_spmv_padded"] - k3,
                     T.launches["sgs_apply"] - k4)
+    out["scalar_applies"] = T.variant_launches["scalar"] - scalar
     x = M.all_gather(res.x, mesh)
     out["residual"] = float(torch.linalg.vector_norm(b - stencil.apply(cfg, x))) / eps
     return out
@@ -282,8 +319,9 @@ def test_shard_kernels_on_two_cards(tmp_path):
                 p.kill()
     for r in outs.values():
         assert r["k3"] == 1 and r["k3_equal"]
-        assert r["k4"] == 1 and r["k4_equal"]
+        assert r["k4"] == 1 and r["k4_equal"] and r["variant"] == "scalar"
         status, iterations, k3, k4 = r["solve"]
         assert status == 0 and iterations > 0
         assert k3 >= iterations and k4 >= iterations  # every product and apply a kernel
+        assert r["scalar_applies"] == k4
         assert r["residual"] <= 1.0

@@ -20,6 +20,7 @@ import torch
 import torch_port_threads  # noqa: F401  (one intra-op thread per test process)
 
 import sparse_matrix_math_tpu as jsmm
+import sparse_matrix_math_tpu_torch as smm
 from sparse_matrix_math_tpu.formats.dia import DIAMatrix as JaxDIAMatrix
 from sparse_matrix_math_tpu.formats.dia import dia_from_csr as jax_dia_from_csr
 from sparse_matrix_math_tpu.ops.pallas_trisweep import sgs_apply_fused as jax_sgs_fused
@@ -29,10 +30,12 @@ from sparse_matrix_math_tpu.ops.pallas_trisweep import (
 from sparse_matrix_math_tpu.precond import PaddedSGS as JaxPaddedSGS
 from sparse_matrix_math_tpu.precond import PaddedTriPair as JaxPaddedTriPair
 from sparse_matrix_math_tpu.utils import generate as jax_gen
+from solvebench.operators import stencil
 from sparse_matrix_math_tpu_torch import interop
 from sparse_matrix_math_tpu_torch.formats.dia import DIAMatrix
 from sparse_matrix_math_tpu_torch.ops import dia_spmv as D
 from sparse_matrix_math_tpu_torch.ops import trisweep as T
+from sparse_matrix_math_tpu_torch.parallel import dist_padded as DP
 from sparse_matrix_math_tpu_torch.precond import FactorizationError, PaddedSGS, PaddedTriPair
 
 TOL = {np.float32: 2e-5, np.float64: 1e-12}
@@ -192,10 +195,10 @@ def test_factors_share_the_matrix_layout():
 def test_cpu_apply_runs_plain_and_counts_nothing():
     _, _, tdia = _poisson(12, np.float32)
     tp = PaddedSGS.from_dia(tdia, sweeps=2)
-    rp = tp.p_lower.to_padded(torch.ones(tdia.shape[0]))
-    before = dict(T.launches)
+    rp = _padded(tp, np.ones(tdia.shape[0], np.float32))
+    before = dict(T.launches), dict(T.variant_launches)
     z = T.sgs_apply_fused(tp, rp)
-    assert T.launches == before
+    assert (T.launches, T.variant_launches) == before
     assert torch.equal(z, T.sgs_apply_plain(tp, rp))
 
 
@@ -458,12 +461,23 @@ class _Factor:
         self.offsets = tuple(offsets)
 
 
-class _Layout:
-    """The fields window_tile reads, for a full-size layout without its data."""
+def _scalar_factor(offsets, n_total):
+    """A ScalarFactor's fields the rule reads; its values are never read."""
+    offsets = tuple(offsets)
+    return T.ScalarFactor(offsets=offsets, coefs=(-1.0,) * len(offsets),
+                          const_diag=(26.0, 1.0 / 26.0), nx=0, ny=0,
+                          row0=0, n_global=1, shape=(1, 1), lead=0, n_total=n_total,
+                          dtype=torch.float64, device=torch.device("cpu"))
 
-    def __init__(self, offsets, n_total, sweeps, sgs=True):
-        self.p_lower = _Factor(o for o in offsets if o < 0)
-        self.p_upper = _Factor(o for o in offsets if o > 0)
+
+class _Layout:
+    """The fields window_tile reads, for a full-size layout without its data
+    (``scalar``: an SGS of a constant-coefficient stencil)."""
+
+    def __init__(self, offsets, n_total, sweeps, sgs=True, scalar=False):
+        factor = (lambda o: _scalar_factor(o, n_total)) if scalar else _Factor
+        self.p_lower = factor(o for o in offsets if o < 0)
+        self.p_upper = factor(o for o in offsets if o > 0)
         self.n_total, self.sweeps = n_total, sweeps
         if sgs:
             self.diag_p = None
@@ -541,3 +555,194 @@ def test_ring_chunk_and_residency():
     assert T.ring_chunk(3, 1, 4) == 1024  # a scale: the general instantiation
     assert T._ring_resident(13, 4) and not T._ring_resident(13, 8)
     assert T._ring_resident(24, 4) and not T._ring_resident(25, 4)
+
+
+@pytest.mark.parametrize("m,dims,points,sweeps,itemsize,variant", [
+    (256, 3, 27, 4, 8, "scalar"),                        # HPCG: per-sweep before
+    (243, 3, 7, 4, 4, "scalar"), (100, 3, 7, 4, 8, "scalar"),  # the ring kernel before
+    (64, 3, 27, 2, 8, "scalar"), (64, 3, 7, 4, 4, "scalar"),
+    (1414, 2, 5, 4, 4, "window"), (40, 3, 7, 4, 4, "window"),  # the window kernels keep theirs
+    (243, 3, 7, 1, 8, "window"),                         # no sweep: one level
+])
+def test_scalar_rule_at_full_size(m, dims, points, sweeps, itemsize, variant):
+    """An SGS of a constant-coefficient stencil takes the scalar variant
+    wherever the window kernels do not take it; its factors on the wrong
+    side keep the per-sweep kernels."""
+    offsets = _stencil_offsets(m, dims, points)
+    n_total = (-(-max(offsets) // 128) * 2 + -(-m ** dims // 128)) * 128
+    layout = _Layout(offsets, n_total, sweeps, scalar=True)
+    assert T.variant_of(layout, 132, itemsize) == variant
+    layout.p_lower, layout.p_upper = layout.p_upper, layout.p_lower
+    assert T.variant_of(layout, 132, itemsize) == "per-sweep"
+
+
+# -- constant-coefficient stencils: detection and the scalar variant's replay -----
+# constant_stencil finds the grid in the offsets and checks the stored values
+# row by row; sgs_apply_scalar_plain replays csrc/trisweep.cu's scalar_sweep
+# (each diagonal one value and a face mask, the init step inside the first
+# sweep), bit for bit sgs_apply_plain on the stored diagonals.
+
+SCALAR_GRIDS = [((12, 10, 7), 27), ((12, 10, 7), 7), ((9, 9, 9), 27), ((9, 9, 9), 7),
+                ((40, 23), 5), ((40, 23), 9)]
+
+
+def _grid_dia(grid, points, dtype=torch.float64):
+    """The benchmark's constant-coefficient stencil on ``grid`` as DIA."""
+    cfg = {"grid": list(grid), "stencil": {"points": points, "diagonal": 26.0,
+                                           "neighbour": -1.0}}
+    return smm.dia_from_csr(stencil.csr(cfg, torch.device("cpu"), dtype, smm.CSRMatrix))
+
+
+def _stored(dia, pre):
+    """``pre`` with its strict parts as the stored, padded diagonals."""
+    def part(sign):
+        keep = [k for k, o in enumerate(dia.offsets) if o * sign > 0]
+        sub = DIAMatrix(diags=dia.diags[keep], offsets=tuple(dia.offsets[k] for k in keep),
+                        shape=dia.shape, nnz=dia.nnz)
+        return D.pad_dia(sub, geometry_offsets=dia.offsets)
+
+    return dataclasses.replace(pre, p_lower=part(-1), p_upper=part(1))
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.parametrize("sweeps", SWEEPS)
+@pytest.mark.parametrize("grid,points", SCALAR_GRIDS,
+                         ids=[f"{'x'.join(map(str, g))}-{p}pt" for g, p in SCALAR_GRIDS])
+def test_scalar_replay_matches_the_stored_diagonals(dtype, grid, points, sweeps):
+    """Detection engages on 27- and 7-point grids, cubic and not (and 2-D
+    ones), from the offsets and values alone; the factors laid out from their
+    scalars are the stored diagonals bit for bit, and the scalar variant's
+    replay is the plain apply on the stored diagonals, bit for bit."""
+    tdtype = torch.from_numpy(np.zeros(1, dtype)).dtype
+    dia = _grid_dia(grid, points, tdtype)
+    pre = PaddedSGS.from_dia(dia, sweeps=sweeps)
+    assert T._is_scalar(pre) and isinstance(pre.p_upper, T.ScalarFactor)
+    assert (pre.p_lower.nx, pre.p_lower.ny) == (grid[0], grid[1] if len(grid) == 3 else 0)
+    for part in (pre.p_lower, pre.p_upper):
+        assert part.const_diag == (26.0, float(torch.tensor(1.0, dtype=tdtype) / 26.0))
+    stored = _stored(dia, pre)
+    for got, want in ((pre.p_lower, stored.p_lower), (pre.p_upper, stored.p_upper)):
+        assert got.offsets == want.offsets
+        assert torch.equal(_bits(got.diags_p), _bits(want.diags_p))
+    rp = _padded(pre, _rhs(dia.shape[0], dtype, seed=2))
+    want = T.sgs_apply_plain(stored, rp)
+    assert torch.equal(_bits(T.sgs_apply_scalar_plain(pre, rp)), _bits(want))
+    assert torch.equal(_bits(pre.apply_padded(rp)), _bits(want))
+    cast = pre.astype(torch.float32 if tdtype == torch.float64 else torch.float64)
+    assert torch.equal(_bits(T.sgs_apply_scalar_plain(cast, rp.to(cast.dtype))),
+                       _bits(T.sgs_apply_plain(stored.astype(cast.dtype), rp.to(cast.dtype))))
+
+
+def _perturb(kind, dia):
+    """``dia`` with other values: a variable-coefficient stencil, one entry
+    one ulp off, a nonzero or a -0.0 across a face, the main diagonal varied."""
+    diags = dia.diags.clone()
+    n = dia.shape[0]
+    strict = dia.offsets.index(-1)
+    if kind == "variable":
+        diags[strict] *= 1.0 + 0.01 * torch.rand(n, generator=torch.Generator().manual_seed(0),
+                                                 dtype=diags.dtype)
+    elif kind == "one_entry":  # row (5, 4, 3): every neighbour inside
+        diags[strict, 413] = torch.nextafter(diags[strict, 413], diags.new_tensor(0.0))
+    elif kind == "across_a_face":
+        diags[strict, 0] = -1.0  # row 0 has no x neighbour below
+    elif kind == "negative_zero":
+        diags[strict, 0] = -0.0
+    elif kind == "main_diagonal":
+        diags[dia.offsets.index(0), n // 3] = 27.0
+    return DIAMatrix(diags=diags, offsets=dia.offsets, shape=dia.shape, nnz=dia.nnz)
+
+
+@pytest.mark.parametrize("kind", ["variable", "one_entry", "across_a_face", "negative_zero",
+                                  "main_diagonal"])
+def test_detection_refuses_other_values(kind):
+    """Any stored value that is not the stencil's keeps the stored diagonals
+    and today's variants, and the apply as it was."""
+    dia = _perturb(kind, _grid_dia((12, 10, 7), 27))
+    pre = PaddedSGS.from_dia(dia, sweeps=4)
+    assert not T._is_scalar(pre)
+    assert isinstance(pre.p_lower, D.PaddedDIA) and isinstance(pre.p_upper, D.PaddedDIA)
+    assert T.variant_of(pre, 132, 8) != "scalar"
+    rp = _padded(pre, _rhs(dia.shape[0], np.float64, seed=3))
+    assert torch.equal(pre.apply_padded(rp), T.sgs_apply_plain(_stored(dia, pre), rp))
+    with pytest.raises(ValueError):
+        T.sgs_apply_scalar_plain(pre, rp)
+
+
+@pytest.mark.parametrize("kind", ["ic0", "ilu0"])
+def test_detection_refuses_a_factor_pair(kind):
+    """IC(0) and ILU(0) factors of the stencil vary along their diagonals: the
+    check refuses their lower factor with its diagonal, and a pair never
+    takes the scalar variant."""
+    grid = (12, 10, 7)
+    cfg = {"grid": list(grid), "stencil": {"points": 27, "diagonal": 26.0, "neighbour": -1.0}}
+    csr = stencil.csr(cfg, torch.device("cpu"), torch.float64, smm.CSRMatrix)
+    fac = smm.get_preconditioner(csr, kind, method="jacobi", sweeps=4, strict_layout="csr")
+    pair = PaddedTriPair.from_factors(fac.lower, fac.upper, smm.dia_from_csr(csr))
+    lower = pair.p_lower
+    diags = torch.cat([lower.diags_p, (1.0 / pair.inv_diag_l_p)[None]])
+    n = pair.shape[0]
+    assert T.constant_stencil(diags, lower.offsets + (0,), pair.inv_diag_l_p, pair.lead, n, 0,
+                              n, lead=pair.lead, n_total=pair.n_total) is None
+    assert not T._is_scalar(pair) and T.variant_of(pair, 132, 8) != "scalar"
+
+
+def test_wrong_sign_factors_leave_the_scalar_variant():
+    """Detected factors swapped to the wrong side for their direction take
+    the per-sweep kernels, on their laid-out diagonals, bit for bit as the
+    stored ones; the grid's offsets fit no other grid."""
+    dia = _grid_dia((12, 10, 7), 27)
+    pre = PaddedSGS.from_dia(dia, sweeps=4)
+    swapped = dataclasses.replace(pre, p_lower=pre.p_upper, p_upper=pre.p_lower)
+    assert T.variant_of(pre, 132, 8) == "scalar"
+    assert T.variant_of(swapped, 132, 8) == "per-sweep"
+    stored = _stored(dia, pre)
+    stored = dataclasses.replace(stored, p_lower=stored.p_upper, p_upper=stored.p_lower)
+    rp = _padded(pre, _rhs(dia.shape[0], np.float64, seed=4))
+    assert torch.equal(T.sgs_apply_fused(swapped, rp), T.sgs_apply_plain(stored, rp))
+
+
+@pytest.mark.parametrize("offsets,grid", [
+    ((-1, 0, 1), None),                    # 1-D: no rows
+    ((-12, -1, 0, 1, 12), (12, 0)),
+    ((-120, -12, -1, 0, 1, 12, 120), (12, 10)),
+    (tuple(dz * 120 + dy * 12 + dx for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+           for dx in (-1, 0, 1)), (12, 10)),
+    (tuple(dz * 120 + dy * 12 + dx for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+           for dx in (-1, 0, 1) if abs(dx) + abs(dy) + abs(dz) < 3), (12, 10)),  # 19 points
+    ((-3, -2, -1, 0, 1, 2, 3), None),      # a run of x steps longer than -1..1
+    ((-14, -13, 0, 13, 14), None),         # a run of two: no centre
+    ((-130, -12, -1, 0, 1, 12, 130), None),  # 130 is no whole number of rows of 12
+])
+def test_grid_from_the_offsets(offsets, grid):
+    """The grid comes from the offsets alone: rows of nx points, planes of ny
+    rows (0: a 2-D grid), or None where no grid of rows fits."""
+    assert T._grid_of(offsets) == grid
+
+
+@pytest.mark.parametrize("grid,points,window", [
+    ((12, 10, 32), 27, (128, 3456)), ((12, 10, 32), 7, (256, 3200)),
+    ((12, 10, 32), 27, (0, 3584)),
+])
+def test_a_window_is_detected_at_its_row_phase(grid, points, window):
+    """A shard's window (``window_sgs``): rows of the whole system from a
+    global row that is no whole number of planes; detection engages at that
+    phase, the laid-out factors are the stored rows, and the replay is the
+    plain apply on them."""
+    dia = _grid_dia(grid, points)
+    pdia = D.pad_dia(dia)
+    row0, rows = window
+    lead = pdia.lead + row0
+    pre = DP.window_sgs(pdia.diags_p, dia.offsets, lead, rows, 4, row0, dia.shape[0], dia.nnz)
+    assert T._is_scalar(pre) and pre.p_lower.row0 == row0 and pre.lead == lead
+    main = dia.offsets.index(0)
+    for p, part in ((pre.p_lower, slice(0, main)), (pre.p_upper, slice(main + 1, None))):
+        assert torch.equal(_bits(p.diags_p[:, lead:lead + rows]),
+                           _bits(pdia.diags_p[part, lead:lead + rows]))
+    rp = torch.zeros(pdia.n_total, dtype=torch.float64)
+    rp[lead:lead + rows] = torch.from_numpy(_rhs(rows, np.float64, seed=5))
+    assert torch.equal(_bits(T.sgs_apply_scalar_plain(pre, rp)),
+                       _bits(T.sgs_apply_plain(pre, rp)))

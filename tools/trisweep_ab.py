@@ -3,12 +3,13 @@
 ``sparse_matrix_math_tpu_torch/csrc/trisweep.cu`` on one CUDA card, and the
 checkout's two variants and tiles against each other.
 
-    python3 tools/trisweep_ab.py PARENT.cu [rounds] [sweeps] [SYSTEM ...]
+    python3 tools/trisweep_ab.py PARENT.cu|- [rounds] [sweeps] [SYSTEM ...]
 
 PARENT.cu is an earlier version of the file whose C entries end in ``tile,
 stream``, as they did before the ring kernel (window kernels at tile > 0,
 per-sweep kernels at 0): for example the parent commit's, unpacked with
-``git archive`` into the git-ignored ``chip_checkout/``.  Both are built side by side with nvcc,
+``git archive`` into the git-ignored ``chip_checkout/``; ``-`` times the
+checkout's variants alone.  Both are built side by side with nvcc,
 the port's flags (``ops/_build.py``) and ``-Xptxas -v`` into the git-ignored
 ``sparse_matrix_math_tpu_torch/build/trisweep_ab/``, and the checkout's
 library is opted in through its own ``smm_trisweep_prepare``; then
@@ -24,10 +25,12 @@ library is opted in through its own ``smm_trisweep_prepare``; then
   its plan from the library's own occupancy query), ``window_split`` (the
   layout's chunks split over the SMs, the halo not considered) and
   ``window_halo_tile`` (a tile as long as the halo, where the halo outgrows
-  the split), and ``per_sweep`` (the per-sweep kernels, tile -1), each where
-  the rule picks another; an alternative whose shared memory the C entry
-  refuses is left out.  The parent runs at the window kernels' tile where
-  the checkout's rule gives one, else with its per-sweep kernels;
+  the split), ``per_sweep`` (the per-sweep kernels on the stored diagonals,
+  tile -1) and, for an SGS of a constant-coefficient stencil, ``scalar``
+  (``smm_sgs_apply_scalar_*``), each where the rule picks another; an
+  alternative whose shared memory the C entry refuses is left out.  The
+  parent runs at the window kernels' tile where the checkout's rule gives
+  one, else with its per-sweep kernels;
 * the checkout's wrapper on the same inputs, timed as ``chip_smoke.median_ms``
   times it (CUDA events around back-to-back calls), and the host's
   microseconds per call of the wrapper and of the bare C entry.
@@ -39,7 +42,9 @@ and ``poisson_3d_27pt(128)`` (rings over the shared memory), SGS and IC(0) on
 ``poisson_3d(40)`` and ``poisson_3d(100)``, SGS on ``poisson_3d(64)`` and
 ``poisson_3d_27pt(24)`` (halos longer than the split tile), SGS on
 ``poisson_3d(72)``, ``(88)`` and ``(96)`` (0.7-3.3 of the ring kernel's
-chunks an SM, around the rule's threshold).  SYSTEM
+chunks an SM, around the rule's threshold), and SGS on
+``poisson_3d_27pt(256)`` in float64 and ``poisson_3d(243) f32`` (the
+benchmark's HPCG and 243^3 SGS cells; these two run only when named).  SYSTEM
 arguments (e.g. ``poisson_3d(40)``) keep only those systems.  Each case
 prints the variant and tile the rule takes, the bound (each input read
 once, z written once) and the traffic of the two designs.  Prints the
@@ -81,6 +86,29 @@ def entry(dll, sgs: bool, dtype_name: str, parent: bool):
     fn.argtypes = _ARGS + ([] if parent else [_P, _I, _P, _I]) + [_P]
     fn.restype = ctypes.c_int
     return fn
+
+
+def scalar_caller(torch, dll, T, pre, rp):
+    """A call of the checkout's scalar-variant entry on fixed buffers."""
+    f64 = rp.dtype == torch.float64
+    word = ctypes.c_double if f64 else ctypes.c_float
+    fn = getattr(dll, f"smm_sgs_apply_scalar_{'f64' if f64 else 'f32'}")
+    fn.argtypes = [_P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P, _P, _I, word,
+                   word, _LL, _LL, _LL, _LL, _P]
+    fn.restype = ctypes.c_int
+    w0, w1, out = (torch.empty_like(rp) for _ in range(3))
+    grid = pre.p_lower or pre.p_upper
+
+    def call():
+        code = fn(rp.data_ptr(), w0.data_ptr(), w1.data_ptr(), out.data_ptr(), int(pre.sweeps),
+                  pre.n_total, pre.lead, pre.shape[0], *T._scalar_args(pre.p_lower),
+                  *T._scalar_args(pre.p_upper), *grid.const_diag, grid.nx, grid.ny, grid.row0,
+                  grid.n_global, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"scalar: CUDA error {code}")
+        return out
+
+    return call
 
 
 def ring_plan_of(dll, T, pre, sgs: bool, f64: bool, sms: int):
@@ -151,7 +179,7 @@ def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    parent = os.path.abspath(sys.argv[1])
+    parent = None if sys.argv[1] == "-" else os.path.abspath(sys.argv[1])
     rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     sweeps = int(sys.argv[3]) if len(sys.argv) > 3 else 4
     only = set(sys.argv[4:])
@@ -162,7 +190,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    built = build({"parent": parent, "this": _SRC}, _OUT, "libtrisweep")
+    built = build({"this": _SRC} if parent is None else {"parent": parent, "this": _SRC}, _OUT,
+                  "libtrisweep")
     for key, b in built.items():
         for name, info in b["ptxas"].items():
             print(f"ptxas {key} {name}: {info}")
@@ -188,10 +217,13 @@ def main() -> int:
                ("poisson_3d(96)", smm.poisson_3d, (96,), ("sgs",)),
                ("poisson_3d(100)", smm.poisson_3d, (100,), ("sgs", "ic0")),
                ("poisson_3d_27pt(24)", smm.poisson_3d_27pt, (24,), ("sgs",))]
+    named = [("poisson_3d_27pt(256)", smm.poisson_3d_27pt, (256,), ("sgs",), torch.float64),
+             ("poisson_3d(243) f32", smm.poisson_3d, (243,), ("sgs",), torch.float32)]
+    systems = [s + (None,) for s in systems]
     if only:
-        systems = [s for s in systems if s[0] in only]
+        systems = [s for s in systems + named if s[0] in only]
     gen = torch.Generator(device=dev).manual_seed(5)
-    for label, make, args, kinds in systems:
+    for label, make, args, kinds, only_dtype in systems:
         csr = make(*args, device=dev)
         dia64 = smm.dia_from_csr(csr)
         for kind in kinds:
@@ -205,6 +237,8 @@ def main() -> int:
             fused, plain = ((T.sgs_apply_fused, T.sgs_apply_plain) if sgs
                             else (T.tri_pair_apply_fused, T.tri_pair_apply_plain))
             for dtype in (torch.float32, torch.float64):
+                if only_dtype not in (None, dtype):
+                    continue
                 name = str(dtype).removeprefix("torch.")
                 pre = pre64.astype(dtype)
                 rp = torch.zeros(pre.n_total, dtype=dtype, device=dev)
@@ -216,11 +250,17 @@ def main() -> int:
                 f64 = dtype == torch.float64
                 this_fn = entry(this_dll, sgs, name, False)
                 plan = ring_plan_of(this_dll, T, pre, sgs, f64, sms)
-                this_tile = {"window": tile, "ring": 0, "per-sweep": -1}[variant]
-                calls = {"parent": caller(torch, entry(dlls["parent"], sgs, name, True), pre,
-                                          rp, sgs, tile, parent=True, key="parent"),
-                         "this": caller(torch, this_fn, pre, rp, sgs, this_tile,
-                                        plan if variant == "ring" else None, key="this")}
+                scalar = sgs and T._is_scalar(pre)
+                calls = {}
+                if parent is not None:
+                    calls["parent"] = caller(torch, entry(dlls["parent"], sgs, name, True), pre,
+                                             rp, sgs, tile, parent=True, key="parent")
+                if variant == "scalar":
+                    calls["this"] = scalar_caller(torch, this_dll, T, pre, rp)
+                else:
+                    this_tile = {"window": tile, "ring": 0, "per-sweep": -1}[variant]
+                    calls["this"] = caller(torch, this_fn, pre, rp, sgs, this_tile,
+                                           plan if variant == "ring" else None, key="this")
                 split = -(-pre.n_total // (T.CHUNK * sms)) * T.CHUNK
                 halo = max((T._levels(o, sweeps) - 1) * T._reach(o)
                            for o in (T._offsets(pre.p_lower), T._offsets(pre.p_upper)))
@@ -233,6 +273,8 @@ def main() -> int:
                 if variant != "per-sweep":
                     alternatives["per_sweep"] = -1
                 refused = []
+                if scalar and variant != "scalar":
+                    calls["scalar"] = scalar_caller(torch, this_dll, T, pre, rp)
                 for key, alt in alternatives.items():
                     call = caller(torch, this_fn, pre, rp, sgs, alt, plan if alt == 0 else None,
                                   key=key)
@@ -242,7 +284,8 @@ def main() -> int:
                         refused.append(key)
                         continue
                     calls[key] = call
-                alts = [k for k in alternatives if k in calls]
+                alts = [k for k in alternatives if k in calls] + (
+                    ["scalar"] if "scalar" in calls else [])
                 want = plain(pre, rp)
                 for key, call in calls.items():
                     got = call()
@@ -250,7 +293,8 @@ def main() -> int:
                     if not torch.equal(bits(torch, got), bits(torch, want)):
                         raise RuntimeError(f"{label} {kind} {name}: {key} differs from the "
                                            "plain version")
-                order = ["parent", "this", *alts, *reversed(alts), "this", "parent"]
+                ends = ["this"] if parent is None else ["parent", "this"]
+                order = [*ends, *alts, *reversed(alts), *reversed(ends)]
                 readings = {k: [] for k in calls}
                 for _ in range(rounds):
                     for key in order:
@@ -268,23 +312,23 @@ def main() -> int:
                 nbytes = apply_bytes(pre, sgs, rp.element_size())
                 tag = f"{kind} {label} {name} sweeps={sweeps}"
                 case = {"variant": variant, "tile": tile, "split_tile": split, "halo": halo,
-                        "alternatives": {k: alternatives[k] for k in alts},
+                        "alternatives": {k: alternatives.get(k, "scalar") for k in alts},
                         "refused": refused, "bound_ms": bound_ms(nbytes),
                         "bound_bytes": nbytes,
                         "traffic_bound_ms": {v: bound_ms(traffic_bytes(pre, sgs,
                                                                        rp.element_size(), v))
-                                             for v in ("window", "ring", "per-sweep")},
+                                             for v in ("window", "ring", "per-sweep", "scalar")},
                         "ring_plan": dataclasses.asdict(plan),
                         "ms": readings, "host_us_per_call": host_us}
                 med = {k: statistics.median(v) for k, v in readings.items()}
                 case["median_ms"] = med
-                case["parent_over_this"] = med["parent"] / med["this"]
+                case["parent_over_this"] = med["parent"] / med["this"] if parent else None
                 result["cases"][tag] = case
                 print(f"{tag}: {variant} (tile {tile}, split {split}, halo {halo}; refused "
                       f"{refused or 'none'}), all bit for bit the plain version; "
                       f"bound {case['bound_ms']:.4f} ms; medians (ms) "
                       + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
-                      + f"; parent / this {case['parent_over_this']:.2f}; this at "
+                      + f"; parent / this {case['parent_over_this']}; this at "
                       f"{100 * case['bound_ms'] / med['this']:.0f}% of the bound; host us per "
                       f"call: wrapper {host_us['wrapper']:.1f}, bare C entry "
                       f"{host_us['this']:.1f}; readings {readings}")
